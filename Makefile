@@ -1,8 +1,8 @@
 # Convenience targets. The package itself needs no build step; `native`
-# compiles the optional C++ bit-packing library (also auto-built on first use
-# by fractencode_tpu/codec/native.py).
+# compiles the optional C++ bit-packing library (also built on first use by
+# fractencode_tpu/codec/native.py whenever the source's hash changes).
 
-.PHONY: all native test bench clean
+.PHONY: all native test test-gpu smoke bench clean
 
 all: native
 
@@ -12,11 +12,16 @@ native/_bitpack.so: native/bitpack.cpp
 	g++ -O2 -shared -fPIC -std=c++17 -o $@ $<
 
 test:
-	python scripts/check_docs.py
 	python -m pytest tests/ -q
+
+test-gpu:
+	JAX_PLATFORMS=cuda python -m pytest tests/ -q -m gpu
+
+smoke:
+	python chip_smoke.py
 
 bench:
 	python bench.py
 
 clean:
-	rm -f native/_bitpack.so
+	rm -f native/_bitpack.so native/_bitpack.sha256

@@ -1,11 +1,11 @@
-"""fractencode_tpu — a TPU-native fractal image codec framework.
+"""fractencode_tpu — a fractal image codec framework in JAX.
 
-Brand-new JAX/XLA/Pallas implementation of Partitioned Iterated Function
-System (PIFS) fractal image compression with the capabilities of the
-reference C++ implementation (sebsgit/fractencode), re-designed for TPU:
-the all-pairs range/domain search is batched matrix algebra on the MXU, the
-decoder is an on-device fixed-point loop, and multi-chip scaling uses
-``jax.sharding`` meshes instead of thread pools.
+JAX/XLA/Pallas implementation of Partitioned Iterated Function System
+(PIFS) fractal image compression with the capabilities of the reference C++
+implementation (sebsgit/fractencode), re-designed for accelerators: the
+all-pairs range/domain search is batched matrix algebra (a Pallas kernel on
+NVIDIA GPUs), the decoder is an on-device fixed-point loop, and multi-device
+scaling uses ``jax.sharding`` meshes instead of thread pools.
 """
 from .params import EncoderConfig, DecoderConfig, REFERENCE_COMPAT
 from .encode import (EncodeResult, encode_plane, encode_batch,

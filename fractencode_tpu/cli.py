@@ -22,7 +22,8 @@ import numpy as np
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="fractencode_tpu", description=__doc__)
-    p.add_argument("input", nargs="?", help="input image (png/jpg)")
+    p.add_argument("input", nargs="?",
+                   help="input image (8-bit PNG; other formats need Pillow)")
     # reference-compatible flags (main.cpp:58-94)
     p.add_argument("--decode", type=int, default=-1, help="max decode iterations")
     p.add_argument("--source", type=int, default=16, help="domain block size")
@@ -50,7 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--so-mode", choices=["ls", "reference"], default="ls")
     p.add_argument("--compat", action="store_true",
                    help="bit-parity with the C++ reference (raw + reference + 4)")
-    p.add_argument("--backend", choices=["auto", "jnp", "pallas"], default="auto")
+    p.add_argument("--backend", choices=["auto", "jnp", "pallas"], default="auto",
+                   help="search route: the Pallas kernel (GPU only), the "
+                        "plain XLA search, or auto (the kernel on a GPU)")
     p.add_argument("--vq-classes", type=int, default=0, metavar="N",
                    help="replace the brightness classifier with an N-bin "
                         "learned LBG codebook prune (1..7; 0 = off) — the "
@@ -193,6 +196,9 @@ def _stats(res):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from .params import DecoderConfig
+    from .utils.cache import setup_compile_cache
+
+    setup_compile_cache()
 
     # --compat pins the strict reference decode semantics: flat-gray start
     # (no pyramid fast path) and stall_window=0 so the iteration count

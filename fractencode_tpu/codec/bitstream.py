@@ -89,7 +89,7 @@ _FLAG_ALL_VALID = 4
 # s by 0 perturbs s by <= bucket/2 — the quantizer's own worst-case error —
 # and only for blocks the encoder already deemed almost flat.  Measured
 # ~16-23% of items at the default 5-bit budget => ~2 bits/item saved
-# (docs/PERF_NOTES.md round 5).
+# (measured on bits and PSNR, which do not depend on the device).
 _FLAG_FLAT_SC = 8
 # flags bits 4-7: num_transforms the search considered (0 = legacy -> 8);
 # lets the decoder build gather tables for only the searched isometries
@@ -167,7 +167,7 @@ def _entropy_pack_fields(dom, tr, s_q, o_q, valid, d_bits,
     """Per-field entropy streams: validity bitmask (raw bytes, framed),
     the domain-index field (raw values — winners are spatially
     uncorrelated, delta AND locality-recentered coding both measurably
-    hurt, docs/PERF_NOTES.md round 5 — coded as a joint range stream or
+    hurt, measured on bits and PSNR — coded as a joint range stream or
     byte-plane Huffman, see ``_encode_dom``), transform, s_q, and zigzag
     prediction residuals of o_q (a >8-bit range stream when o_bits == 8).
 
@@ -342,7 +342,7 @@ def pack_result(
             # default 0.35 buckets: measured PSNR-neutral-or-better on the
             # fixtures (0.5 — the worst-case-neutral bound — costs ~0.01-
             # 0.07 dB; 0.35 is at or above the no-flat PSNR at most of the
-            # rate win; docs/PERF_NOTES.md round 5)
+            # rate win on measured bits)
             flat = (np.abs(s) <= flat_scale * bucket) | ~valid
             if flat.any():
                 f_payload = _entropy_pack_fields(

@@ -6,7 +6,7 @@ fields.  This module supplies the rate half of rate-distortion: per-field
 byte streams (domain-index byte planes, transform, s_q, zigzag-delta o_q)
 each get a static canonical Huffman code built from the stream's own
 histogram.  Measured symbol entropies on the Lenna fixtures (see
-docs/PERF_NOTES.md round 4): transform ~2.0 bits, s_q ~3.6, delta-o_q ~5.1
+measured): transform ~2.0 bits, s_q ~3.6, delta-o_q ~5.1
 vs their 3/5/7-bit fixed widths; domain indices are near-incompressible
 (winners are spatially uncorrelated — delta coding *hurts*: H(delta) >
 H(raw)), so they stay raw-valued and only their byte planes get coded.

@@ -1,13 +1,16 @@
 """ctypes loader for the native bit-packing library.
 
-Builds ``native/bitpack.cpp`` into a shared object on first use (cached next
-to the source); falls back silently to the numpy implementation when no
-compiler is available.  The numpy path stays the oracle — see
-``tests/test_native.py``.
+Builds ``native/bitpack.cpp`` into a shared object next to the source on
+first use, and again whenever the source's content hash differs from the
+one recorded beside the binary (a checkout does not preserve mtimes, and
+the binary is never committed).  Falls back silently to the numpy
+implementation when no compiler is available.  The numpy path stays the
+oracle — see ``tests/test_native.py``.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -20,23 +23,46 @@ __all__ = ["get_lib", "pack_items_native", "unpack_items_native",
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _SRC = os.path.join(_REPO_ROOT, "native", "bitpack.cpp")
 _SO = os.path.join(_REPO_ROOT, "native", "_bitpack.so")
+_STAMP = os.path.join(_REPO_ROOT, "native", "_bitpack.sha256")
 
 _lock = threading.Lock()
 _lib = None
 _lib_checked = False
 
 
-def _build() -> bool:
+def _build(src: str, so: str) -> bool:
+    tmp = f"{so}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-o", _SO, _SRC],
+            ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-o", tmp, src],
             check=True,
             capture_output=True,
             timeout=120,
         )
+        os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
         return True
     except Exception:
+        if os.path.exists(tmp):
+            os.remove(tmp)
         return False
+
+
+def _ensure_built(src: str = _SRC, so: str = _SO, stamp: str = _STAMP) -> bool:
+    """Build ``so`` from ``src`` unless ``stamp`` records the hash of the
+    source it was built from.  Returns whether an up-to-date binary exists."""
+    if not os.path.exists(src):
+        return False
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    if os.path.exists(so) and os.path.exists(stamp):
+        with open(stamp) as f:
+            if f.read().strip() == digest:
+                return True
+    if not _build(src, so):
+        return False
+    with open(stamp, "w") as f:
+        f.write(digest + "\n")
+    return True
 
 
 def get_lib():
@@ -46,9 +72,8 @@ def get_lib():
         if _lib_checked:
             return _lib
         _lib_checked = True
-        if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-            if not os.path.exists(_SRC) or not _build():
-                return None
+        if not _ensure_built():
+            return None
         try:
             lib = ctypes.CDLL(_SO)
         except OSError:

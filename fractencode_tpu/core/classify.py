@@ -3,7 +3,7 @@
 The reference classifies one block at a time from its four quadrant sums via
 24 hand-written inequality chains mapping to 6 classes, or -1 when no chain
 holds (``/root/reference/encode/Classifier2.cpp:8-53``).  Here the whole
-grid's classes are computed at once on the VPU from the [N, 4] quadrant-sum
+grid's classes are computed at once from the [N, 4] quadrant-sum
 tensor.
 
 Faithfulness note: the 24 conditions are replicated *verbatim as inequality
@@ -99,8 +99,7 @@ def classify_from_quadrants(quads: jnp.ndarray) -> jnp.ndarray:
 
     The 24 three-way inequality chains (Classifier2.cpp:22-50) collapse to a
     12-bit pairwise-order code + one 4096-entry table lookup: ~10 vector ops
-    instead of ~150 (the where-chain version was launch-bound on TPU, ~13 ms
-    of a 160 ms encode at 2048^2).  Exactly equivalent — the table is built
+    instead of ~150.  Exactly equivalent — the table is built
     by evaluating the original chains (see _order_code_table), and ties map
     to codes whose rows keep -1.
     """

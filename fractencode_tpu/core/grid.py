@@ -1,7 +1,7 @@
 """Uniform grid partitions as pure index arithmetic.
 
 The reference materializes a vector of grid-item objects
-(``/root/reference/image/partition2.hpp:109-135``).  On TPU a uniform grid is
+(reference ``image/partition2.hpp:109-135``).  Here a uniform grid is
 just arithmetic on a row-major item index, so we only ever build small numpy
 origin arrays at trace time (static shapes), never device-side object lists.
 

@@ -4,7 +4,7 @@ The reference samples one pixel at a time: clamp the local coordinate to the
 patch interior, map the 2x2 neighbourhood through the isometry, and average
 the four taps (``/root/reference/image/sampler.h:21-38`` +
 ``image/transform.h:96-109``).  Per-comparison pointer chasing like that is
-poison on TPU, so we precompute, per (source_size, target_size, transform),
+poison on an accelerator, so we precompute, per (source_size, target_size, transform),
 the four *flat* tap offsets for every output pixel.  Sampling a whole domain
 block then becomes one gather + one reduction over a length-4 axis, which XLA
 fuses; sampling the whole codebook is a single batched gather.

@@ -1,11 +1,11 @@
 """Block statistics, vectorized.
 
 Replaces the reference's per-block SIMD sum routines
-(``/root/reference/image/ImageStatistics.cpp:4-51``): on TPU the whole grid's
+(reference ``image/ImageStatistics.cpp:4-51``): the whole grid's
 block sums are computed at once.  Two strategies, both exact in integer
 arithmetic (i32 — a 255-valued 16x16 block sums to 65280, far below 2**31):
 
-  * non-overlapping, image-aligned grids: reshape + sum (XLA reduces on VPU);
+  * non-overlapping, image-aligned grids: reshape + sum;
   * arbitrary (overlapping) grids: 2-D inclusive prefix sum (integral image)
     + 4-corner gather, O(HW) regardless of overlap.
 """
@@ -49,10 +49,10 @@ def grid_block_sums(plane: jnp.ndarray, grid: Grid, ii: jnp.ndarray | None = Non
 def block_sums_nonoverlapping(plane: jnp.ndarray, block_size: int) -> jnp.ndarray:
     """[H//b, W//b] i32 block sums for an exact non-overlapping tiling.
 
-    Lowered as ``reduce_window``: the naive reshape-to-[H/b, b, W/b, b] sum
-    splits the minor (lane) dimension, which XLA:TPU turns into a ~6x slower
-    relayout (measured 5.3 ms vs 0.8 ms for b=2 at 2048^2).  Integer adds
-    are order-independent, so this is bit-identical to the reshape-sum.
+    Lowered as ``reduce_window`` rather than a reshape-to-[H/b, b, W/b, b]
+    sum, which splits the minor dimension and can force a relayout; which
+    form is faster on the H100 awaits measurement.  Integer adds are
+    order-independent, so the two are bit-identical.
     """
     h, w = plane.shape
     b = block_size
@@ -75,8 +75,7 @@ def quadrant_sums(plane: jnp.ndarray, grid: Grid, ii: jnp.ndarray | None = None,
     quadrant lies on the half-aligned non-overlapping tiling, so the sums are
     a reshape-reduce plus slicing — no integral image, no gathers.  For
     step == block (non-overlapping grids) the four "slices" are one fused
-    reshape-transpose (four strided slices on the TPU's tiled layout cost
-    ~3 ms EACH at 2048^2).
+    reshape-transpose instead of four strided slices.
 
     ``sums2x2``: optional [H/2, W/2] i32 2x2-box sums of the plane — callers
     that already reduce the plane once (the codebook's half image is the

@@ -1,6 +1,6 @@
 """The 8 dihedral isometries of the square, as index maps.
 
-TPU-native design: instead of mapping coordinates one pixel at a time (the
+Design: instead of mapping coordinates one pixel at a time (the
 reference maps each (x, y) through an 8x8 integer coefficient table,
 ``/root/reference/image/transform.h:32-41``), we precompute *flat index
 permutation tables* once per (block_size, transform) at trace time with numpy,

@@ -8,9 +8,9 @@ full image) until the inter-iterate MSE drops below epsilon (default 1e-5) or
 apply ``s*v + o``, clamp to [0, 255] and *truncate* to u8
 (``DecodeUtils.hpp:23`` uses a static_cast, not a round).
 
-TPU-native design: because ranges tile the image exactly, one decode step is
-a single batched gather (4 taps per output pixel through precomputed
-isometry/stride tables) + VPU affine/clamp + a reshape — no scatter needed.
+Design: because ranges tile the image exactly, one decode step is a single
+batched gather (4 taps per output pixel through precomputed isometry/stride
+tables) + an elementwise affine/clamp + a reshape — no scatter needed.
 The convergence loop is a ``lax.while_loop`` so the whole decode stays on
 device; u8 image state keeps HBM traffic minimal.
 """
@@ -113,10 +113,9 @@ def build_decode_tables(domain_idx, transform, width, height, source_size,
     Preferred ("cb"): re-sample the whole (domain, isometry) pool from the
     evolving image with static strided slices — the decode-time analog of the
     encoder's codebook build (``encode/codebook.py``) — and read each range's
-    values as ONE contiguous row instead of K scattered taps.  XLA's TPU
-    gather costs per *element* descriptor; this path cuts descriptors by K
-    and turns the rest into vectorized copies (measured ~2.2 ms -> ~0.2 ms
-    per 512^2 step).
+    values as ONE contiguous row instead of K scattered taps: K times fewer
+    gather indices, the rest vectorized copies.  Its cost on the H100
+    against the tap-gather fallbacks awaits measurement.
 
     Fallbacks: ("half", [R, K] single-tap indices into the half-res image)
     when only the half-res geometry qualifies, else ("full", [R, K, 4]
@@ -160,10 +159,9 @@ def _build_indices(result: EncodeResult):
 def half_res_image(img_u8: jnp.ndarray) -> jnp.ndarray:
     """[H, W] u8/f32 -> [H/2, W/2] f32 2x2 box averages (multiples of 0.25).
 
-    ``reduce_window`` lowering: the reshape-to-[H/2, 2, W/2, 2] sum splits
-    the lane dimension, which XLA:TPU relayouts at ~6x the cost (5.45 ms vs
-    0.82 ms per decode step at 2048^2).  Sums of u8-valued floats are exact
-    in f32 in any order, so this is bit-identical.
+    ``reduce_window`` lowering rather than a reshape-to-[H/2, 2, W/2, 2]
+    sum, which splits the minor dimension.  Sums of u8-valued floats are
+    exact in f32 in any order, so the two are bit-identical.
     """
     s = jax.lax.reduce_window(
         img_u8.astype(jnp.float32), 0.0, jax.lax.add, (2, 2), (2, 2), "VALID"
@@ -191,21 +189,20 @@ def sample_domains(img_u8, tables):
     """[R, K] f32 sampled (2x2-averaged) domain pixels for every range.
 
     The pool/gather pipeline runs in u16 quarter-units (2x2 box sums,
-    <= 1020): the per-range row gather is row-byte-bound on TPU, so halving
-    the element width cuts it ~2.7x (measured 4.1 -> 1.5 ms/step at 2048^2);
-    the f32 conversion + 0.25 scale after the gather is exact.
+    <= 1020): the per-range row gather moves half the bytes of an f32
+    pool; the f32 conversion + 0.25 scale after the gather is exact.  Its
+    gain on the H100 awaits measurement (ROADMAP Queue 1 item 4).
     """
     kind, idx = tables
     if kind == "cb":
         code, pos, tap_idx, ny, nx, s2 = idx
         half4 = _half_sums_u16(img_u8)
         h2, w2 = half4.shape
-        # One slice per distinct patch position: [U, D] pool.  Lane-strided
-        # (column) slices are ~4x the cost of sublane-strided ones on TPU
-        # (measured 2.2 -> 0.6 ms/step at 2048^2, scripts/micro_pool2.py),
-        # so hoist the column stride: s2 column-phase images (one
-        # lane-strided slice each), then every patch slice is row-strided
-        # with contiguous columns.  Element selection is identical.
+        # One slice per distinct patch position: [U, D] pool.  The column
+        # stride is hoisted: s2 column-phase images (one column-strided
+        # slice each), then every patch slice is row-strided with
+        # contiguous columns.  Element selection is identical.  Whether the
+        # hoist pays on the H100 awaits measurement.
         planes = []
         if s2 > 1:
             cols = {}
@@ -389,7 +386,7 @@ def _decode_core(result: EncodeResult, dcfg: DecoderConfig):
         pi = _pyramid_init(result, s, o, dcfg)
         if pi is not None:
             # Fixed-count full-res refinement.  Measured
-            # (docs/PERF_NOTES.md round 5): PSNR saturates at 4-5 steps
+            # (measured on PSNR): PSNR saturates at 4-5 steps
             # from the pyramid start on natural content, while the
             # inter-iterate MSE keeps contracting geometrically (ratio
             # ~0.5-0.85/step) essentially forever — so NO stall margin can

@@ -2,12 +2,12 @@
 
 The reference re-samples domain pixels on every (range, domain, transform)
 comparison through the bilinear sampler (``transformmatcher.h:97,130``).
-TPU-native design: sample every (domain, isometry) *once per image* into a
+Design: sample every (domain, isometry) *once per image* into a
 dense codebook tensor ``C[D, T, K]`` (K = target_size**2) plus its per-column
 sums — this is the "presampled partition" idea the reference abandoned
 (``image/partition/presampledpartition.h:8-26``) taken to its conclusion.
-The all-pairs search then reduces to one big matmul against ``C`` (MXU) and
-cheap VPU epilogues.
+The all-pairs search then reduces to one big matmul against ``C`` and
+cheap elementwise epilogues.
 
 Values are multiples of 0.25 in [0, 255], exactly representable in f32, so
 f32 keeps bit-parity with the reference's float math on the sums that matter.
@@ -44,7 +44,7 @@ class Codebook:
     def inv_var_or_compute(self) -> jnp.ndarray:
         if self.inv_var is not None:
             return self.inv_var
-        from ..ops.matcher_pallas import inv_var_b
+        from ..ops.rank import inv_var_b
 
         k = self.values.shape[-1]
         return inv_var_b(self.sum, self.sum_sq, float(k))
@@ -139,7 +139,7 @@ def build_codebook(
             acc = acc + blocks[:, jnp.asarray(taps[:, :, j])]
         values = acc * 0.25  # [D, T, K]
 
-    from ..ops.matcher_pallas import inv_var_b
+    from ..ops.rank import inv_var_b
 
     sums = values.sum(axis=-1)
     sums_sq = (values * values).sum(axis=-1)
@@ -158,13 +158,11 @@ def extract_ranges(plane_f32: jnp.ndarray, target_size: int) -> jnp.ndarray:
     Row-major block order (x fastest) matches ``createUniformGrid``
     (``partition2.hpp:123-133``), so range index r = ry * (W//tw) + rx.
 
-    Lowering: at 16384^2 the reshape-transpose route materializes the
-    [H/tw, tw, W/tw, tw] intermediate in TPU tiled layout, whose minor
-    dims pad tw -> (8, 128) — a 32x blowup that EXCEEDS HBM (measured:
-    a 32 GB allocation for a 1 GB logical tensor).  Build column k of the
-    output with one strided slice instead (tw^2 slices, each [H/tw, W/tw]
-    with no padded intermediate; column-phase hoisting as in the decode
-    pool build).  Element selection identical.
+    Lowering: past 8192^2 the reshape-transpose route's [H/tw, tw, W/tw,
+    tw] intermediate can be padded by the device layout far beyond its
+    logical size, so column k of the output is built with one strided
+    slice instead (tw^2 slices, each [H/tw, W/tw], no padded
+    intermediate).  Element selection identical.
     """
     h, w = plane_f32.shape
     tw = target_size

@@ -1,11 +1,12 @@
-"""Plane encoder: the TPU-native equivalent of ``Frac2::Encoder2``.
+"""Plane encoder: the equivalent of ``Frac2::Encoder2``.
 
 Reference pipeline (``/root/reference/encode/Encoder2.hpp:27-45``,
 ``main.cpp:142-167``): build domain + range grids with preclassified
 brightness bins, then fan range blocks out over a thread pool where each
 thread linearly scans all domains.  Here the whole search is one jitted
-program: codebook build (gathers) -> class computation (prefix sums + VPU)
--> chunked matmul + fused argmin (MXU + VPU, or the Pallas kernel backend).
+program: codebook build (gathers) -> class computation (prefix sums)
+-> all-pairs search on the route encode/route.py chooses (the plain
+chunked matmul + argmin, or the Pallas search kernel).
 
 The per-range output arrays play the role of ``grid_encode_data_t``
 (``encode/datatypes.h:8-26``).
@@ -23,7 +24,7 @@ from ..core.grid import Grid, uniform_grid
 from ..core.stats import integral_image
 from ..params import EncoderConfig
 from .codebook import build_codebook, extract_ranges
-from .matcher import search, search_pallas, search_pallas_classed
+from .route import run_search
 
 __all__ = ["EncodeResult", "encode_plane", "encode_stats"]
 
@@ -151,29 +152,8 @@ def _encode_plane_impl(plane: jnp.ndarray, cfg: EncoderConfig) -> EncodeResult:
     cfg_s = (dataclasses.replace(cfg, use_classifier=True)
              if cfg.vq_classes > 0 else cfg)
 
-    backend = cfg.backend
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "jnp"
-    if backend == "pallas":
-        # rms_threshold > 0 is handled IN the kernels: the early-accept
-        # frontier (TransformEstimator2.hpp:40-41, transformmatcher.h:55-56)
-        # is a prefix mask + per-row freeze in the running argmax (see
-        # ops.matcher_pallas._apply_frontier).
-        interpret = jax.default_backend() != "tpu"
-        if cfg_s.use_classifier and range_classes is not None:
-            # class-blocked kernel: the prune becomes a real FLOP saving
-            res = search_pallas_classed(
-                ranges, sum_a, sum_a2, cb, range_classes, domain_classes,
-                cfg_s, interpret=interpret,
-            )
-        else:
-            res = search_pallas(
-                ranges, sum_a, sum_a2, cb, range_classes, domain_classes,
-                cfg_s, interpret=interpret,
-            )
-    else:
-        res = search(ranges, sum_a, sum_a2, cb, range_classes, domain_classes,
-                     cfg_s)
+    res = run_search(ranges, sum_a, sum_a2, cb, range_classes,
+                     domain_classes, cfg_s)
     return EncodeResult(
         domain_idx=res.domain_idx,
         transform=res.transform,
@@ -210,13 +190,10 @@ def _encode_plane_arrays(plane: jnp.ndarray, cfg: EncoderConfig):
 
 @functools.partial(jax.jit, static_argnames=("cfg",))
 def _encode_batch_impl(planes: jnp.ndarray, cfg: EncoderConfig):
-    # lax.map: images stream through the (Pallas) search sequentially on the
-    # device — one dispatch for the whole batch, kernels stay busy back to
-    # back (single-chip throughput mode, BASELINE config 5's per-chip lane),
-    # and only one frame's prep arrays are live at a time.  Measured and
-    # rejected in round 2: vmapped prep + lax.map'd kernel (23 vs 34 Mpix/s
-    # — vmap pessimizes the codebook's strided-slice build into batched
-    # gathers) and lax.scan with unroll=2 (31 vs 34 Mpix/s).
+    # lax.map: frames stream through the search one after another in ONE
+    # device program (one dispatch for the whole batch), and only one
+    # frame's intermediates are live at a time.  Whether vmap or a deeper
+    # batch fills the card better awaits measurement on the H100.
     return jax.lax.map(lambda p: _encode_plane_arrays(p, cfg), planes)
 
 
@@ -224,11 +201,9 @@ def encode_batch_stacked(planes, cfg: EncoderConfig | None = None) -> EncodeResu
     """Encode a [B, H, W] u8 batch in one device program; return ONE
     EncodeResult whose arrays carry a leading batch axis ([B, R]).
 
-    This is the zero-dispatch form ``encode_batch`` slices: production
-    throughput loops (and the bench) should consume the stacked arrays
-    directly — the per-frame slicing is 6*B extra device ops, pure host-API
-    overhead (~µs on a locally attached TPU, but a visible fraction of the
-    program on remote-attached devices)."""
+    This is the zero-dispatch form ``encode_batch`` slices: throughput
+    loops should consume the stacked arrays directly — the per-frame
+    slicing is 6*B extra device ops of pure host-API overhead."""
     cfg = cfg or EncoderConfig()
     planes = jnp.asarray(planes, jnp.uint8)
     _, h, w = planes.shape

@@ -4,8 +4,19 @@ The reference's triple-nested hot loop — ranges x domains x transforms with
 per-pair early exits (``TransformEstimator2.hpp:29-48``,
 ``transformmatcher.h:38-144``) — decomposes into the five sums SumA, SumA2,
 SumB, SumB2, SumAB.  Only SumAB depends on the (range, domain-isometry) pair
-and it is exactly a matmul ``[R, K] @ [K, D*T]`` -> MXU.  Everything else is
-a VPU epilogue.
+and it is exactly a matmul ``[R, K] @ [K, D*T]``.  Everything else is an
+elementwise epilogue (ops/rank.py).
+
+Two routes compute the same winners:
+  * ``search`` — the plain reference: XLA, chunked over ranges, every pair
+    scored and then masked.  SumAB is an f32 dot at ``Precision.HIGHEST``
+    (true f32, no TF32/bf16 passes), exact for K <= 64 because every
+    product and partial sum is an integer multiple of 0.25 below 2^22.
+  * ``search_kernel`` — the class-sorted layout below feeding the Pallas
+    kernel (ops/search_kernel.py), which skips the pairs the classifier
+    rejects instead of masking them.
+Both hand their winners to ``_winners``, which solves (s, o) and the
+reported distance the same way for either route.
 
 Exact reference selection semantics (criterion='raw'):
   * distance = MSE(range, sampled domain) WITHOUT (s, o), normalized by the
@@ -28,13 +39,12 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
+from ..ops.rank import (BIG as _BIG, INT8_MAX_K, exact_sum_ab, rank_mode,
+                        rank_tile, rank_to_dist)
 from ..params import EncoderConfig
 from .codebook import Codebook
 
-__all__ = ["SearchResult", "solve_so", "search"]
-
-# plain Python float: module import must not trigger backend initialization
-_BIG = 3.0e38
+__all__ = ["SearchResult", "solve_so", "search", "search_kernel"]
 
 
 @jax.tree_util.register_dataclass
@@ -48,8 +58,8 @@ class SearchResult:
     s: jnp.ndarray  # f32 contrast
     o: jnp.ndarray  # f32 brightness
     valid: jnp.ndarray  # bool — False if the classifier rejected every domain
-    # f32 MAXIMIZED rank key q of the winner (see ops.matcher_pallas.rank_mode),
-    # or None.  Sharded reducers compare q, not distance: distance saturates
+    # f32 MAXIMIZED rank key q of the winner (see ops.rank.rank_mode), or
+    # None.  Sharded reducers compare q, not distance: distance saturates
     # (e.g. 'ls' clamps at 0 for flat ranges) so equal distances can hide
     # different keys, and only the key reproduces the single-device
     # first-occurrence tie-break bitwise across shards.
@@ -73,8 +83,6 @@ def solve_so(sum_a, sum_a2, sum_b, sum_b2, sum_ab, n: float, so_mode: str, s_max
     are the final i32->f32 casts and one division — matching the double
     computation to f32 precision.
     """
-    from ..ops.matcher_pallas import INT8_MAX_K
-
     exact = n <= INT8_MAX_K
     if exact:
         ni = int(n)
@@ -109,57 +117,44 @@ def solve_so(sum_a, sum_a2, sum_b, sum_b2, sum_ab, n: float, so_mode: str, s_max
     return s, o
 
 
-def _pair_scores(ranges, sum_a, sum_a2, cb: Codebook, cfg: EncoderConfig):
-    """Scores + (s, o) for a chunk of ranges against the whole codebook.
+def _mode_kw(cfg: EncoderConfig, cb: Codebook, k: int) -> dict:
+    inv_norm = (1.0 / (cb.grid.block_size * cb.grid.block_size)
+                if cfg.criterion == "raw" else 1.0 / k)
+    return dict(criterion=cfg.criterion, so_mode=cfg.so_mode,
+                s_max=cfg.s_max, inv_norm=inv_norm, n=float(k))
 
-    ranges: [RC, K]; returns (dist, key, s, o), each [RC, D, T].  ``dist`` is
-    in the criterion's units; ``key`` is the MINIMIZED ranking key (the
-    negated Pallas rank key, same f32 rounding as the kernel so winners and
-    tie-breaks agree bit-exactly; see ops.matcher_pallas._rank_tile).
+
+def _aux(cb: Codebook, cfg: EncoderConfig):
+    """[D, T] per-column aux input of the rank key (see ops.rank.rank_mode)."""
+    if rank_mode(cfg.criterion, cfg.so_mode, cfg.s_max) == "ls":
+        return cb.inv_var_or_compute()
+    return cb.sum_sq
+
+
+def _pair_keys(ranges, sum_a, sum_a2, cb: Codebook, cfg: EncoderConfig):
+    """Scores for a chunk of ranges against the whole codebook.
+
+    ranges: [RC, K]; returns (dist, key), each [RC, D, T].  ``dist`` is in
+    the criterion's units; ``key`` is the MINIMIZED ranking key (the negated
+    kernel key, same f32 rounding, so winners and tie-breaks agree).
     """
-    from ..ops.matcher_pallas import _rank_tile, rank_mode, rank_to_dist
-
     k = ranges.shape[-1]
-    n = float(k)
     d, t, _ = cb.values.shape
-    # MXU: SumAB for every pair. [RC, K] @ [K, D*T]
-    flat_cb = cb.values.reshape(d * t, k)
-    # Precision.HIGHEST: on TPU the default f32 "matmul" truncates inputs to
-    # bf16 on the MXU, which destroys the exactness of the distance algebra
-    # (range pixels are 8-bit ints, samples are multiples of 0.25 needing 10
-    # mantissa bits).  HIGHEST uses the multi-pass bf16 decomposition whose
-    # partial products are exact in f32 for this data, preserving bit-parity
-    # with the reference's float accumulation.
+    # SumAB for every pair: [RC, K] @ [K, D*T].  HIGHEST = true f32 on every
+    # backend (TF32 or one bf16 pass would truncate the 10-bit samples).
     sum_ab = jax.lax.dot_general(
         ranges,
-        flat_cb,
+        cb.values.reshape(d * t, k),
         dimension_numbers=(((1,), (1,)), ((), ())),
         preferred_element_type=jnp.float32,
         precision=jax.lax.Precision.HIGHEST,
     ).reshape(-1, d, t)
-
     sa = sum_a[:, None, None]
     sa2 = sum_a2[:, None, None]
-    sb = cb.sum[None, :, :]
-    sb2 = cb.sum_sq[None, :, :]
-
-    s, o = solve_so(sa, sa2, sb, sb2, sum_ab, n, cfg.so_mode, cfg.s_max)
-
-    inv_norm = (
-        1.0 / (cb.grid.block_size * cb.grid.block_size)
-        if cfg.criterion == "raw"
-        else 1.0 / k
-    )
-    mode_kw = dict(criterion=cfg.criterion, so_mode=cfg.so_mode,
-                   s_max=cfg.s_max, inv_norm=inv_norm, n=n)
-    aux = (
-        cb.inv_var_or_compute()[None, :, :]
-        if rank_mode(cfg.criterion, cfg.so_mode, cfg.s_max) == "ls"
-        else sb2
-    )
-    q = _rank_tile(sum_ab, sa, sa2, sb, aux, **mode_kw)
-    dist = rank_to_dist(q, sa2, sa, **mode_kw)
-    return dist, -q, s, o
+    mode_kw = _mode_kw(cfg, cb, k)
+    q = rank_tile(sum_ab, sa, sa2, cb.sum[None], _aux(cb, cfg)[None],
+                  **mode_kw)
+    return rank_to_dist(q, sa2, sa, **mode_kw), -q
 
 
 def select_best(dist, threshold: float, key=None):
@@ -169,7 +164,7 @@ def select_best(dist, threshold: float, key=None):
     ``key`` (optional, same shape) is the MINIMIZED ranking key; when given,
     ranking/tie-breaks use it while the early-accept frontier still uses
     ``dist`` (thresholds are in distance units).  Ranking by key keeps the
-    oracle bit-consistent with the Pallas kernels' rank-key argmax.
+    oracle bit-consistent with the kernel's rank-key argmax.
 
     Full-scan equivalence of the early exits: let d* be the first domain whose
     per-domain min <= threshold (if any).  The reference's scan then never
@@ -206,515 +201,52 @@ def select_best(dist, threshold: float, key=None):
     return win_d, win_t
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
+def _winners(ranges, sum_a, sum_a2, cb: Codebook, cfg: EncoderConfig,
+             win_m, q) -> SearchResult:
+    """From each range's winning search-order column ``win_m`` and its key
+    ``q`` (-BIG where nothing competed) to the SearchResult, identically for
+    both routes: (s, o) are solved for the winners only, from their exact
+    SumAB (ops.rank.exact_sum_ab).
 
-
-_NUM_CLASS_BINS = 7  # classifier bins -1..5 shifted to 0..6; 7 = padding
-
-
-def _class_layout(classes01: jnp.ndarray, block: int,
-                  num_bins: int = _NUM_CLASS_BINS):
-    """Tile-aligned class-sorted layout for ``n`` items in classes
-    0..num_bins-1.
-
-    Returns (pos [n] i32 destination of each item in the padded buffer,
-    seg_start [num_bins+1] i32 first padded index of each class,
-    counts [num_bins+1] i32, tile_boundaries [num_bins] i32 cumulative tile
-    counts — tile t belongs to class searchsorted(boundaries, t, 'right')).
-
-    All shapes static: the padded buffer has ``n_pad`` slots
-    (= round_up(n, block) + num_bins*block covers the worst per-class
-    alignment waste).
-    """
-    # Counting sort (fixed bins): per-class running rank via a cumsum over
-    # the one-hot class matrix — no argsort (a stable 1M-key sort was ~2/3 of
-    # the layout cost), no scatter (pos is computed directly per item).
-    onehot = (
-        classes01[:, None] == jnp.arange(num_bins, dtype=classes01.dtype)
-    ).astype(jnp.int32)  # [n, num_bins]
-    csum = jnp.cumsum(onehot, axis=0)  # inclusive per-class counts
-    counts = csum[-1]  # [num_bins]
-    tiles = -(-counts // block)  # ceil
-    tile_cum = jnp.cumsum(tiles)  # [num_bins]
-    seg_start_t = jnp.concatenate([jnp.zeros(1, tiles.dtype), tile_cum[:-1]])
-    seg_start = (seg_start_t * block).astype(jnp.int32)  # element units
-
-    # rowwise (onehot . csum) picks csum[i, cls_i] with a mul+reduce instead
-    # of a take_along_axis gather (~3.5 ms at 1M items on TPU vs ~0.3 ms)
-    rank = (onehot * csum).sum(axis=1) - 1
-    pos = (onehot * seg_start[None, :]).sum(axis=1) + rank.astype(jnp.int32)
-
-    seg_start1 = jnp.concatenate([seg_start, jnp.zeros(1, jnp.int32)])
-    counts1 = jnp.concatenate([counts.astype(jnp.int32), jnp.zeros(1, jnp.int32)])
-    return pos, seg_start1, counts1, tile_cum.astype(jnp.int32)
-
-
-def _classed_statics(r: int, m: int, cfg: EncoderConfig,
-                     masked_domains: bool = False,
-                     masked_ranges: bool = False):
-    """Static (python-int) layout parameters shared by prep/kernel/post.
-
-    ``masked_domains`` reserves one extra column bin for classifier-valid but
-    geometry-masked domain columns (sharded tail padding / off-image rows):
-    bin 7 holds them, no range tile ever points at it.
-
-    ``masked_ranges`` reserves one extra ROW bin for ranges excluded from
-    the search (quadtree blocks already covered by an accepted coarser
-    level): their tiles pair with the empty column bin, so they cost zero
-    kernel compute steps (the partition-level analog of the reference's
-    early-exit FLOP saving, ``TransformEstimator2.hpp:40-41``).
-    """
-    from ..ops.matcher_pallas import DEFAULT_BM, DEFAULT_BR, PAIR_CAP
-
-    n_col_bins = _NUM_CLASS_BINS + (1 if masked_domains else 0)
-    n_row_bins = _NUM_CLASS_BINS + (1 if masked_ranges else 0)
-    block_r = min(DEFAULT_BR, _round_up(r, 8))
-    block_m = min(DEFAULT_BM, _round_up(m, 128))
-    r_pad = _round_up(r, block_r) + n_row_bins * block_r
-    m_pad = _round_up(m, block_m) + n_col_bins * block_m
-    # The packed pair list stores the col-tile index in _CT_BITS bits
-    # (ops.matcher_pallas._pack_pairs).  Configs past that width (16K+
-    # images) route to the 2-D classed kernel instead — same selection
-    # semantics, no pair list (round 5; previously this asserted).
-    from ..ops.matcher_pallas import _CT_BITS
-
-    use_pairs = m_pad // block_m < (1 << _CT_BITS)
-    worst_pairs = (r_pad // block_r) * (m_pad // block_m) + r_pad // block_r
-    p_cap = min(worst_pairs, PAIR_CAP)
-    return block_r, block_m, r_pad, m_pad, worst_pairs, p_cap, use_pairs
-
-
-def classed_prep(ranges, sum_a, sum_a2, cb: Codebook, range_classes,
-                 domain_classes, cfg: EncoderConfig, domain_mask=None,
-                 range_mask=None, force_no_pairs: bool = False):
-    """Class-sorted layout + active-pair list (pure jnp, vmappable): every
-    array the classed kernel consumes, plus the inverse maps post needs.
-
-    ``domain_mask`` ([D] bool or None): False marks geometry-invalid domains
-    (sharded tail padding, off-image halo rows).  Their columns are parked in
-    the reserved bin ``_NUM_CLASS_BINS`` which no range tile ever visits, so
-    they cost zero kernel steps and can never win.
-
-    ``range_mask`` ([R] bool or None): False marks ranges excluded from the
-    search (quadtree coverage masking).  They are parked in a reserved ROW
-    bin whose tiles pair with the zero-count column bin — zero compute
-    pairs, so fine quadtree levels only pay for uncovered blocks.  Searched
-    ranges' winners are bit-identical to the unmasked search: each range's
-    scores are row-independent and the column layout is unchanged.
-    """
-    from ..ops.matcher_pallas import _pack_pairs, rank_mode
-
-    r, k = ranges.shape
+    Above INT8_MAX_K the routes' f32 SumAB dots round in different orders,
+    so the reported distance is recomputed from the winner's exact SumAB;
+    at or below it every route's keys are exact and the distance is the
+    key's."""
+    k = ranges.shape[-1]
     d, t, _ = cb.values.shape
-    m = d * t
-    masked = domain_mask is not None
-    r_masked = range_mask is not None
-    n_col_bins = _NUM_CLASS_BINS + (1 if masked else 0)
-    n_row_bins = _NUM_CLASS_BINS + (1 if r_masked else 0)
-    block_r, block_m, r_pad, m_pad, worst_pairs, p_cap, use_pairs = \
-        _classed_statics(r, m, cfg, masked_domains=masked,
-                         masked_ranges=r_masked)
-    use_pairs = use_pairs and not force_no_pairs
-
-    rcls01 = (range_classes + 1).astype(jnp.int32)  # bins -1..5 -> 0..6
-    dcls01 = (domain_classes + 1).astype(jnp.int32)
-    if masked:
-        dcls01 = jnp.where(domain_mask, dcls01, _NUM_CLASS_BINS)
-    if r_masked:
-        rcls01 = jnp.where(range_mask, rcls01, _NUM_CLASS_BINS)
-
-    # search-order columns: m = d*T + (T-1-t)
-    cb_cols = cb.values[:, ::-1, :].reshape(m, k)
-    sb = cb.sum[:, ::-1].reshape(m)
-    sb2 = cb.sum_sq[:, ::-1].reshape(m)
-    aux = (
-        cb.inv_var_or_compute()[:, ::-1].reshape(m)
-        if rank_mode(cfg.criterion, cfg.so_mode, cfg.s_max) == "ls"
-        else sb2
-    )
-
-    rpos, _, _, r_tile_cum = _class_layout(rcls01, block_r, n_row_bins)
-
-    # Column layout at DOMAIN granularity when block_m % T == 0: all T
-    # isometries of a domain share its class and occupy T consecutive
-    # search-order columns (m = d*T + (T-1-t) is domain-major), and class
-    # segments are block_m-aligned, so the column-sorted layout is exactly
-    # the domain-sorted layout expanded T-fold.  Operand gathers then move
-    # [2*T*K]-byte rows with T times fewer descriptors — the per-column
-    # gathers were descriptor-bound (~2.5 ms each at 2048^2).
-    inv_dom = None
-    if block_m % t == 0:
-        d_pad = m_pad // t
-        dpos, d_seg_start, d_counts, _ = _class_layout(
-            dcls01, block_m // t, n_col_bins)
-        inv_dom = jnp.full((d_pad,), d, jnp.int32).at[dpos].set(
-            jnp.arange(d, dtype=jnp.int32)
-        )
-        c_seg_start = d_seg_start * t
-        c_counts = d_counts * t
-        # inv_col is implied arithmetically by inv_dom (inv_col[c] =
-        # inv_dom[c//T]*T + c%T, masked to m): materializing the [m_pad]
-        # array + gathering it in post measured 49 + 89 us/frame at 512^2
-        # — classed_post computes the winner's column from inv_dom instead
-        inv_col = None
-    else:
-        ccls01 = jnp.repeat(dcls01, t)
-        cpos, c_seg_start, c_counts, _ = _class_layout(
-            ccls01, block_m, n_col_bins)
-        inv_col = jnp.full((m_pad,), m, jnp.int32).at[cpos].set(
-            jnp.arange(m, dtype=jnp.int32)
-        )
-
-    # Permute into the class-sorted layout with GATHERS (row scatters are
-    # much slower on TPU): first invert the position maps with small i32
-    # scatters, then gather rows.  Padding slots point at index n (a zero
-    # row appended to the source).
-    inv_r = jnp.full((r_pad,), r, jnp.int32).at[rpos].set(
-        jnp.arange(r, dtype=jnp.int32)
-    )
-    pad_1 = jnp.zeros((1,), jnp.float32)
-
-    from ..ops.matcher_pallas import INT8_MAX_K, _is_ls_fast
-
-    use_int8 = cfg.int8_matmul and k <= INT8_MAX_K
-    if _is_ls_fast(cfg.criterion, cfg.so_mode, cfg.s_max, use_int8,
-                   cfg.rms_threshold):
-        # the kernel derives SumA from its resident int8 tiles and the
-        # q -> dist conversion happens after unsorting (classed_post), so
-        # the sorted per-row sums are never needed at all
-        sa_s = sa2_s = None
-    else:
-        sa_s = jnp.concatenate([sum_a, pad_1])[inv_r]
-        sa2_s = jnp.concatenate([sum_a2, pad_1])[inv_r]
-    if use_int8:
-        # Convert to the kernel's int8 operands BEFORE the row gathers: the
-        # sorted-layout permutation commutes with the elementwise conversion
-        # and the gathers move 4x fewer bytes (the two f32 row gathers were
-        # the bulk of the prep stage at 2K+).  b4_cols (pre-sort, i16) is
-        # kept for the winner (s,o) solve in classed_post — one i16 gather
-        # there replaces the f32 winner-row gather, exactly.
-        ai = (ranges.astype(jnp.int32) - 128).astype(jnp.int8)
-        b4_cols = jnp.round(cb_cols * 4.0).astype(jnp.int16)  # [m, k]
-        ch = (b4_cols >> 3).astype(jnp.int8)
-        cl = (b4_cols & 7).astype(jnp.int8)
-        pad_row8 = jnp.zeros((1, k), jnp.int8)
-        ai_s = jnp.concatenate([ai, pad_row8])[inv_r]
-        if inv_dom is not None:
-            # ONE domain-row gather moves both operands (ch|cl packed into
-            # [d, 2*T*K] i8 rows), T times fewer descriptors than per-column
-            packed = jnp.concatenate(
-                [ch.reshape(d, t * k), cl.reshape(d, t * k)], axis=1)
-            packed_s = jnp.concatenate(
-                [packed, jnp.zeros((1, 2 * t * k), jnp.int8)])[inv_dom]
-            ch_s = packed_s[:, :t * k].reshape(m_pad, k)
-            cl_s = packed_s[:, t * k:].reshape(m_pad, k)
-        else:
-            ch_s = jnp.concatenate([ch, pad_row8])[inv_col]
-            cl_s = jnp.concatenate([cl, pad_row8])[inv_col]
-        ranges_s = None
-        cb_s = None
-        # Derive the sorted per-column sums from the resident int8 operands
-        # instead of gathering sb/aux through inv_col (two slow f32 scalar
-        # gathers at 2K+): rowsums of b4 = 8*ch + cl are the exact integers
-        # behind cb.sum / cb.sum_sq (samples are multiples of 0.25, every
-        # term < 2^24), and inv_var_b is integer-exact for K <= INT8_MAX_K,
-        # so the derived values are BIT-IDENTICAL to the gathered ones
-        # (padding rows are zero -> sb = 0, aux = 0, exactly as the gather's
-        # appended zero slot produced).
-        from ..ops.matcher_pallas import inv_var_b
-
-        if inv_dom is not None:
-            # reduce in the domain-major [d_pad, T, K] view: full-lane
-            # reductions instead of 16-of-128-lane ones
-            chw = packed_s[:, :t * k].astype(jnp.int32).reshape(-1, t, k)
-            clw = packed_s[:, t * k:].astype(jnp.int32).reshape(-1, t, k)
-            b4w = 8 * chw + clw
-            sb4_s = b4w.sum(axis=2).reshape(m_pad)
-            sb2_16_s = (b4w * b4w).sum(axis=2).reshape(m_pad)
-        else:
-            b4_s = 8 * ch_s.astype(jnp.int32) + cl_s.astype(jnp.int32)
-            sb4_s = b4_s.sum(axis=1)
-            sb2_16_s = (b4_s * b4_s).sum(axis=1)
-        sb_s = sb4_s.astype(jnp.float32) * 0.25
-        sb2_s = sb2_16_s.astype(jnp.float32) * 0.0625
-        if rank_mode(cfg.criterion, cfg.so_mode, cfg.s_max) == "ls":
-            aux_s = inv_var_b(sb_s, sb2_s, float(k))
-        else:
-            aux_s = sb2_s
-    else:
-        pad_row = jnp.zeros((1, k), jnp.float32)
-        ranges_s = jnp.concatenate([ranges, pad_row])[inv_r]
-        ai_s = ch_s = cl_s = b4_cols = None
-        if inv_dom is not None:
-            cbv = cb.values[:, ::-1, :].reshape(d, t * k)
-            cb_s = jnp.concatenate(
-                [cbv, jnp.zeros((1, t * k), jnp.float32)])[inv_dom]
-            cb_s = cb_s.reshape(m_pad, k)
-            sbaux = jnp.concatenate(
-                [sb.reshape(d, t), aux.reshape(d, t)], axis=1)  # [d, 2T]
-            sbaux_s = jnp.concatenate(
-                [sbaux, jnp.zeros((1, 2 * t), jnp.float32)])[inv_dom]
-            sb_s = sbaux_s[:, :t].reshape(m_pad)
-            aux_s = sbaux_s[:, t:].reshape(m_pad)
-        else:
-            cb_s = jnp.concatenate([cb_cols, pad_row])[inv_col]
-            sb_s = jnp.concatenate([sb, pad_1])[inv_col]
-            aux_s = jnp.concatenate([aux, pad_1])[inv_col]
-
-    # per-range-tile class (tiles beyond the last class are padding -> 7)
-    nrt = r_pad // block_r
-    tile_ids = jnp.arange(nrt, dtype=jnp.int32)
-    tile_class = jnp.searchsorted(r_tile_cum, tile_ids, side="right").astype(jnp.int32)
-    # Park non-class row tiles (padding, and masked ranges when range_mask
-    # is set) at the zero-count column bin: n_col_bins is the appended empty
-    # entry of col_tile_count (and, in the masked-domain layout, sits past
-    # the real masked-domain bin those tiles must never visit).
-    tile_class = jnp.where(tile_class >= _NUM_CLASS_BINS, n_col_bins,
-                           tile_class)
-
-    col_tile_start = c_seg_start // block_m  # [n_col_bins+1]
-    col_tile_count = -(-c_counts // block_m)  # [n_col_bins+1] ceil
-    col_end = c_seg_start + c_counts  # first invalid sorted index
-
-    # Active-pair list: grid over exactly the (range tile, col tile) pairs
-    # the classifier keeps (dynamic length), instead of the worst-case 2-D
-    # grid with predicated-off steps.  Every tile gets >= 1 pair (a dummy
-    # when its class has no columns) so its output block is initialized.
-    #
-    # Per-pair segment values come from scatter+cumsum "spreads" instead of
-    # searchsorted + [p_cap]-sized gathers: searchsorted lowers to a while
-    # loop (22.7 ms at 4096^2 where p_cap = 196608) while each spread is one
-    # tiny scatter plus a [p_cap] prefix sum.  Segment starts are strictly
-    # increasing (counts_eff >= 1), so scatter slots never collide.
-    if not use_pairs:
-        # 16K+: the col-tile index would overflow the packed pair-list
-        # field, so the kernel runs the 2-D classed grid instead — no pair
-        # list to build at all (classed_kernel routes on pairs is None)
-        return dict(
-            ranges_s=ranges_s, sa_s=sa_s, sa2_s=sa2_s,
-            cb_s=cb_s, sb_s=sb_s, aux_s=aux_s,
-            ai_s=ai_s, ch_s=ch_s, cl_s=cl_s, b4_cols=b4_cols,
-            pairs=None, n_pairs=jnp.int32(0),
-            tile_class=tile_class, col_tile_start=col_tile_start,
-            col_tile_count=col_tile_count, col_end=col_end,
-            rpos=rpos, inv_col=inv_col, inv_dom=inv_dom,
-        )
-
-    counts_t = col_tile_count[tile_class]  # [nrt]
-    counts_eff = jnp.maximum(counts_t, 1)
-    off = jnp.concatenate(
-        [jnp.zeros(1, jnp.int32), jnp.cumsum(counts_eff).astype(jnp.int32)]
-    )
-    n_pairs = off[-1]
-    p_ids = jnp.arange(p_cap, dtype=jnp.int32)
-    starts = off[:-1]  # [nrt] first pair index of each range tile's segment
-    in_cap = starts < p_cap
-    starts_c = jnp.clip(starts, 0, p_cap - 1)
-
-    def spread(vals):
-        """[nrt] per-tile values -> [p_cap] vals[rt(p)] (segment broadcast)."""
-        delta = jnp.concatenate([vals[:1], vals[1:] - vals[:-1]])
-        buf = jnp.zeros((p_cap,), jnp.int32).at[starts_c].add(
-            jnp.where(in_cap, delta, 0))
-        return jnp.cumsum(buf)
-
-    rt = spread(tile_ids)
-    jj = p_ids - spread(starts)
-    valid_p = p_ids < n_pairs
-    cnt = spread(counts_t)
-    compute = valid_p & (jj < cnt)
-    first = valid_p & (jj == 0)
-    ct = spread(col_tile_start[tile_class]) + \
-        jnp.minimum(jj, jnp.maximum(cnt - 1, 0))
-    pairs = _pack_pairs(rt, jnp.maximum(ct, 0), first, compute)
-
-    return dict(
-        ranges_s=ranges_s, sa_s=sa_s, sa2_s=sa2_s,
-        cb_s=cb_s, sb_s=sb_s, aux_s=aux_s,
-        ai_s=ai_s, ch_s=ch_s, cl_s=cl_s, b4_cols=b4_cols,
-        pairs=pairs, n_pairs=n_pairs,
-        tile_class=tile_class, col_tile_start=col_tile_start,
-        col_tile_count=col_tile_count, col_end=col_end,
-        rpos=rpos, inv_col=inv_col, inv_dom=inv_dom,
-    )
-
-
-def classed_kernel(prep: dict, k: int, domain_area: int, block_r: int,
-                   block_m: int, p_cap: int, worst_pairs: int,
-                   cfg: EncoderConfig, interpret: bool, t_n: int = 4):
-    """Run the Pallas search on prepped arrays: the pair-list kernel, with a
-    lax.cond fallback to the 2-D classed kernel when a degenerate class
-    distribution overflows the pair budget (only reachable at 4K+).
-    Returns (dist_s, idx_s, q_s) in the sorted layout."""
-    from ..ops.matcher_pallas import (
-        INT8_MAX_K,
-        PAIR_CAP,
-        fused_search_classed,
-        fused_search_pairs,
-    )
-
-    use_int8 = cfg.int8_matmul and k <= INT8_MAX_K
-    int8_ops = (prep["ai_s"], prep["ch_s"], prep["cl_s"]) if use_int8 else None
-    common = dict(
-        criterion=cfg.criterion,
-        so_mode=cfg.so_mode,
-        s_max=cfg.s_max,
-        inv_norm=(
-            1.0 / domain_area if cfg.criterion == "raw" else 1.0 / k
-        ),
-        block_r=block_r,
-        block_m=block_m,
-        use_int8=use_int8,
-        int8_ops=int8_ops,
-        interpret=interpret,
-        threshold=cfg.rms_threshold,
-        t_n=t_n,
-    )
-
-    def _pairs_path():
-        return fused_search_pairs(
-            prep["ranges_s"], prep["sa_s"], prep["sa2_s"],
-            prep["cb_s"], prep["sb_s"], prep["aux_s"],
-            prep["pairs"], prep["n_pairs"], prep["tile_class"],
-            prep["col_end"],
-            p_cap=p_cap, **common,
-        )
-
-    def _classed_path():
-        return fused_search_classed(
-            prep["ranges_s"], prep["sa_s"], prep["sa2_s"],
-            prep["cb_s"], prep["sb_s"], prep["aux_s"],
-            prep["tile_class"], prep["col_tile_start"],
-            prep["col_tile_count"], prep["col_end"],
-            **common,
-        )
-
-    if prep["pairs"] is None:
-        # 16K+ layout: the pair-list col-tile field would overflow, so the
-        # 2-D classed kernel is the only path (statically routed)
-        return _classed_path()
-    if worst_pairs <= PAIR_CAP:
-        # the pair list can always hold every pair: no fallback needed
-        return _pairs_path()
-    # data-dependent overflow (very skewed class distributions at 4K+):
-    # compile both, execute the one that fits at runtime
-    return jax.lax.cond(prep["n_pairs"] <= p_cap, _pairs_path, _classed_path)
-
-
-def classed_post(dist_s, idx_s, q_s, rpos, inv_col, ranges, sum_a, sum_a2,
-                 cb: Codebook, cfg: EncoderConfig, b4_cols=None,
-                 inv_dom=None) -> SearchResult:
-    """Map sorted-layout kernel outputs back to original range order and
-    solve (s, o) for the winners (pure jnp, vmappable).
-
-    ``b4_cols`` ([m, k] i16, 4x the codebook values in search order, from
-    classed_prep's int8 path): when given, the winner SumAB comes from one
-    i16 row gather + integer dot — exact and 4x less gather traffic than the
-    f32 winner-row gather."""
-    r, k = ranges.shape
-    d, t, _ = cb.values.shape
-    m = d * t
-    m_pad = (inv_col.shape[0] if inv_col is not None
-             else inv_dom.shape[0] * t)
-
-    # ONE [r_pad, 2-3] row gather unsorts every kernel output (f32 columns
-    # bitcast to i32 ride alongside idx) — separate [R] scalar gathers were
-    # ~2x the cost
-    cols = [jax.lax.bitcast_convert_type(q_s, jnp.int32), idx_s]
-    if dist_s is not None:
-        cols.append(jax.lax.bitcast_convert_type(dist_s, jnp.int32))
-    packed_out = jnp.stack(cols, axis=1)[rpos]
-    key_r = jax.lax.bitcast_convert_type(packed_out[:, 0], jnp.float32)
-    win_sorted = packed_out[:, 1]
-
-    if dist_s is None:
-        # ls_fast path: convert the winner's rank key to a distance AFTER
-        # unsorting, against the original-order row sums (elementwise and
-        # permutation-invariant — bit-identical to converting pre-sort)
-        from ..ops.matcher_pallas import rank_to_dist
-
-        inv_norm = (
-            1.0 / (cb.grid.block_size ** 2)
-            if cfg.criterion == "raw"
-            else 1.0 / k
-        )
-        q_r = key_r
-        dist = rank_to_dist(
-            q_r, sum_a2, sum_a,
-            criterion=cfg.criterion, so_mode=cfg.so_mode, s_max=cfg.s_max,
-            inv_norm=inv_norm, n=float(k),
-        )
-    else:
-        q_r = key_r
-        dist = jax.lax.bitcast_convert_type(packed_out[:, 2], jnp.float32)
-    valid = dist < _BIG
-    ws = jnp.clip(win_sorted, 0, m_pad - 1)
-    if inv_dom is not None:
-        # the sorted->original column map is domain-major: column c holds
-        # domain inv_dom[c // T], isometry column c % T (masked slots -> m)
-        wd = inv_dom[ws // t]
-        wcol = jnp.where(wd == d, m, wd * t + ws % t)
-    else:
-        wcol = inv_col[ws]
-    win_m = jnp.where(valid, wcol, 0)
-    win_m = jnp.clip(win_m, 0, m - 1)
+    valid = q > -_BIG * 0.5
+    win_m = jnp.clip(jnp.where(valid, win_m, 0), 0, d * t - 1)
     win_d = win_m // t
     win_t = (t - 1) - (win_m % t)
-
-    # the derived-sums shortcut is only exactly f32-renderable for K <= 16:
-    # at K = 64, 16*SumB2 can reach 64 * 1020^2 ~ 6.7e7 > 2^24, so the
-    # i32 -> f32 cast rounds and can differ by an ULP from the f32-summed
-    # cb.sum_sq the other backends read — route K > 16 through the sbb gather
-    if b4_cols is not None and k > 16:
-        b4_cols = None
-    if b4_cols is not None:
-        b4_win = b4_cols[win_m].astype(jnp.int32)  # [R, k]
-        # SumAB = (sum_k A*4B) / 4 — exact i32 (<= 2^24), exact f32 render
-        sum_ab = (
-            (ranges.astype(jnp.int32) * b4_win).sum(axis=-1).astype(jnp.float32)
-            * 0.25
-        )
-        # derive the winner's (SumB, SumB2) from the SAME gathered row —
-        # rowsums of 4B are the exact integers behind cb.sum / cb.sum_sq
-        # (see classed_prep), so no [R, 2] sbb gather is needed at all
-        sb_win = b4_win.sum(axis=-1).astype(jnp.float32) * 0.25
-        sb2_win = (
-            (b4_win * b4_win).sum(axis=-1).astype(jnp.float32) * 0.0625
-        )
-    else:
-        cb_cols = cb.values[:, ::-1, :].reshape(m, k)
-        win_rows = cb_cols[win_m]
-        sum_ab = (ranges * win_rows).sum(axis=-1)
-        # pack (SumB, SumB2) so the winner lookup is ONE row gather
-        sbb = jnp.stack(
-            [cb.sum[:, ::-1].reshape(m), cb.sum_sq[:, ::-1].reshape(m)],
-            axis=1,
-        )
-        sbb_win = sbb[win_m]  # [R, 2]
-        sb_win = sbb_win[:, 0]
-        sb2_win = sbb_win[:, 1]
-    s, o = solve_so(sum_a, sum_a2, sb_win, sb2_win, sum_ab,
+    sum_ab = exact_sum_ab(ranges, cb.values[win_d, win_t])
+    sb = cb.sum[win_d, win_t]
+    s, o = solve_so(sum_a, sum_a2, sb, cb.sum_sq[win_d, win_t], sum_ab,
                     float(k), cfg.so_mode, cfg.s_max)
-    s = jnp.where(valid, s, 0.0)
-    o = jnp.where(valid, o, 0.0)
+    mode_kw = _mode_kw(cfg, cb, k)
+    q_dist = q
+    if k > INT8_MAX_K:
+        q_dist = rank_tile(sum_ab, sum_a, sum_a2, sb,
+                           _aux(cb, cfg)[win_d, win_t], **mode_kw)
+    dist = rank_to_dist(q_dist, sum_a2, sum_a, **mode_kw)
+    # Classifier rejected everything: reference falls back to the default
+    # item_match_t (s=0, o=0 => decoder writes black; Encoder semantics of
+    # TransformEstimator2.hpp:30 default + DecodeUtils.hpp:22-23).
     return SearchResult(
         domain_idx=win_d.astype(jnp.int32),
         transform=win_t.astype(jnp.int32),
-        distance=dist,
-        s=s,
-        o=o,
+        distance=jnp.where(valid, dist, _BIG),
+        s=jnp.where(valid, s, 0.0),
+        o=jnp.where(valid, o, 0.0),
         valid=valid,
-        key=q_r,
+        key=jnp.where(valid, q, -_BIG),
     )
 
 
 def mask_ranges_result(res: SearchResult, range_mask: jnp.ndarray
                        ) -> SearchResult:
     """Canonical fields for ranges excluded by ``range_mask`` (False = out):
-    every backend returns the same bits for masked-out entries so results
-    stay comparable regardless of whether the backend skipped the compute
-    (classed kernel) or post-masked a full search (oracle, dense kernel)."""
+    both routes return the same bits for masked-out entries whether they
+    skipped the work (kernel) or post-masked a full search (plain route)."""
     z32 = jnp.zeros((), jnp.int32)
     zf = jnp.zeros((), jnp.float32)
     return SearchResult(
@@ -725,163 +257,6 @@ def mask_ranges_result(res: SearchResult, range_mask: jnp.ndarray
         o=jnp.where(range_mask, res.o, zf),
         valid=res.valid & range_mask,
         key=None if res.key is None else jnp.where(range_mask, res.key, -_BIG),
-    )
-
-
-@partial(jax.jit, static_argnames=("cfg", "interpret", "force_no_pairs"))
-def search_pallas_classed(
-    ranges: jnp.ndarray,
-    sum_a: jnp.ndarray,
-    sum_a2: jnp.ndarray,
-    cb: Codebook,
-    range_classes: jnp.ndarray,
-    domain_classes: jnp.ndarray,
-    cfg: EncoderConfig,
-    domain_mask: jnp.ndarray | None = None,
-    interpret: bool = False,
-    range_mask: jnp.ndarray | None = None,
-    force_no_pairs: bool = False,
-) -> SearchResult:
-    """Class-blocked Pallas backend: the classifier's equality prune becomes
-    a real FLOP reduction.  Ranges and codebook columns are laid out sorted
-    by class bin into tile-aligned segments, and each range tile visits only
-    its own class's column tiles (``fused_search_pairs``).
-
-    Selection semantics are identical to ``search_pallas`` with a classifier:
-    only same-bin pairs compete, reference tie-break order preserved (column
-    order within a class stays (domain asc, transform desc) because the
-    class sort is stable).
-
-    Split into ``classed_prep`` / ``classed_kernel`` / ``classed_post`` so
-    batch mode can vmap the jnp stages and lax.map only the kernel.
-    """
-    r, k = ranges.shape
-    d, t, _ = cb.values.shape
-    m = d * t
-    block_r, block_m, _, _, worst_pairs, p_cap, _ = _classed_statics(
-        r, m, cfg, masked_domains=domain_mask is not None,
-        masked_ranges=range_mask is not None)
-
-    prep = classed_prep(ranges, sum_a, sum_a2, cb, range_classes,
-                        domain_classes, cfg, domain_mask=domain_mask,
-                        range_mask=range_mask, force_no_pairs=force_no_pairs)
-    dist_s, idx_s, q_s = classed_kernel(
-        prep, k, cb.grid.block_size ** 2, block_r, block_m, p_cap,
-        worst_pairs, cfg, interpret, t_n=t,
-    )
-    res = classed_post(dist_s, idx_s, q_s, prep["rpos"], prep["inv_col"],
-                       ranges, sum_a, sum_a2, cb, cfg,
-                       b4_cols=prep["b4_cols"], inv_dom=prep["inv_dom"])
-    if range_mask is not None:
-        res = mask_ranges_result(res, range_mask)
-    return res
-
-
-@partial(jax.jit, static_argnames=("cfg", "interpret"))
-def search_pallas(
-    ranges: jnp.ndarray,
-    sum_a: jnp.ndarray,
-    sum_a2: jnp.ndarray,
-    cb: Codebook,
-    range_classes: jnp.ndarray | None,
-    domain_classes: jnp.ndarray | None,
-    cfg: EncoderConfig,
-    interpret: bool = False,
-) -> SearchResult:
-    """Pallas-kernel backend: fused MXU scoring + on-chip argmin.
-
-    Same selection semantics as ``search``, including the threshold
-    early-accept frontier (``rms_threshold`` > 0 becomes a prefix mask +
-    per-row freeze inside the kernel; see ops.matcher_pallas._apply_frontier)
-    — the hit test and ranking use the same f32 expressions as the oracle so
-    winners and tie-breaks agree bitwise.
-    """
-    from ..ops.matcher_pallas import (
-        DEFAULT_BM,
-        DEFAULT_BR,
-        INT8_MAX_K,
-        fused_search,
-        rank_mode,
-    )
-
-    r, k = ranges.shape
-    d, t, _ = cb.values.shape
-    m = d * t
-
-    # search-order columns: m = d*T + (T-1-t)  => argmin first-hit == tie rule
-    cb_cols = cb.values[:, ::-1, :].reshape(m, k)
-    sb = cb.sum[:, ::-1].reshape(m)
-    sb2 = cb.sum_sq[:, ::-1].reshape(m)
-    aux = (
-        cb.inv_var_or_compute()[:, ::-1].reshape(m)
-        if rank_mode(cfg.criterion, cfg.so_mode, cfg.s_max) == "ls"
-        else sb2
-    )
-
-    use_classes = range_classes is not None and cfg.use_classifier
-    if use_classes:
-        col_cls = jnp.repeat(domain_classes, t)
-        rcls = range_classes
-    else:
-        col_cls = jnp.zeros((m,), jnp.int32)
-        rcls = jnp.zeros((r,), jnp.int32)
-
-    block_r = min(DEFAULT_BR, _round_up(r, 8))
-    block_m = min(DEFAULT_BM, _round_up(m, 128))
-    rp = _round_up(r, block_r)
-    mp = _round_up(m, block_m)
-
-    ranges_p = jnp.pad(ranges, ((0, rp - r), (0, 0)))
-    sum_a_p = jnp.pad(sum_a, (0, rp - r))
-    sum_a2_p = jnp.pad(sum_a2, (0, rp - r))
-    rcls_p = jnp.pad(rcls, (0, rp - r), constant_values=-3)
-    cb_cols_p = jnp.pad(cb_cols, ((0, mp - m), (0, 0)))
-    # padded tail is masked by column index inside the kernel (m_valid)
-    sb_p = jnp.pad(sb, (0, mp - m))
-    aux_p = jnp.pad(aux, (0, mp - m))
-    col_cls_p = jnp.pad(col_cls, (0, mp - m), constant_values=-4)
-
-    dist, win_m, q = fused_search(
-        ranges_p, sum_a_p, sum_a2_p, cb_cols_p, sb_p, aux_p, rcls_p, col_cls_p,
-        criterion=cfg.criterion,
-        so_mode=cfg.so_mode,
-        s_max=cfg.s_max,
-        inv_norm=(
-            1.0 / (cb.grid.block_size ** 2)
-            if cfg.criterion == "raw"
-            else 1.0 / k
-        ),
-        use_classes=use_classes,
-        m_valid=m,
-        block_r=block_r,
-        block_m=block_m,
-        use_int8=cfg.int8_matmul and k <= INT8_MAX_K,
-        interpret=interpret,
-        threshold=cfg.rms_threshold,
-        t_n=t,
-    )
-    dist = dist[:r]
-    win_m = win_m[:r]
-    q = q[:r]
-    win_d = win_m // t
-    win_t = (t - 1) - (win_m % t)
-
-    valid = dist < _BIG
-    # (s, o) for winners only
-    win_rows = cb_cols[win_m]  # [R, K]
-    sum_ab = (ranges * win_rows).sum(axis=-1)
-    s, o = solve_so(sum_a, sum_a2, sb[win_m], sb2[win_m], sum_ab, float(k),
-                    cfg.so_mode, cfg.s_max)
-    s = jnp.where(valid, s, 0.0)
-    o = jnp.where(valid, o, 0.0)
-    return SearchResult(
-        domain_idx=win_d.astype(jnp.int32),
-        transform=win_t.astype(jnp.int32),
-        distance=dist,
-        s=s,
-        o=o,
-        valid=valid,
-        key=q,
     )
 
 
@@ -897,15 +272,12 @@ def search(
     domain_mask: jnp.ndarray | None = None,
     range_mask: jnp.ndarray | None = None,
 ) -> SearchResult:
-    """Best (domain, transform, s, o) per range block.
+    """Best (domain, transform, s, o) per range block: the plain reference.
 
     ranges [R, K] f32; sum_a/sum_a2 [R] f32; classes i32 or None.
     Scans in chunks of ``cfg.range_chunk`` ranges to bound the [RC, D, T]
-    intermediate (the Pallas backend fuses this loop on-chip instead).
-
-    ``range_mask``: the oracle computes the full search and post-masks
-    (``mask_ranges_result``); only the classed Pallas backend turns the mask
-    into a real FLOP cut.  Searched entries are identical either way.
+    intermediates.  Class mismatches, ``domain_mask`` and ``range_mask``
+    are applied after the work (``search_kernel`` skips it instead).
     """
     r, k = ranges.shape
     d, t, _ = cb.values.shape
@@ -928,7 +300,7 @@ def search(
             rng, sa, sa2, rcls = args
         else:
             rng, sa, sa2 = args
-        dist, key, s, o = _pair_scores(rng, sa, sa2, cb, cfg)
+        dist, key = _pair_keys(rng, sa, sa2, cb, cfg)
         if use_classes:
             match = rcls[:, None] == domain_classes[None, :]  # [RC, D]
             dist = jnp.where(match[:, :, None], dist, _BIG)
@@ -937,38 +309,159 @@ def search(
             dist = jnp.where(domain_mask[None, :, None], dist, _BIG)
             key = jnp.where(domain_mask[None, :, None], key, _BIG)
         win_d, win_t = select_best(dist, cfg.rms_threshold, key)
-        take = lambda x: jnp.take_along_axis(
-            jnp.take_along_axis(x, win_d[:, None, None], axis=1)[:, 0, :],
-            win_t[:, None],
-            axis=1,
-        )[:, 0]
-        best = take(dist)
-        valid = best < _BIG
-        # maximized rank key of the winner (key is the minimized -q)
-        return (win_d, win_t, jnp.where(valid, best, _BIG), take(s), take(o),
-                valid, -take(key))
+        best_key = jnp.take_along_axis(
+            jnp.take_along_axis(key, win_d[:, None, None], axis=1)[:, 0, :],
+            win_t[:, None], axis=1)[:, 0]
+        # search-order column and maximized key of the winner
+        return win_d * t + (t - 1 - win_t), -best_key
 
     chunk_args = (ranges_p, sum_a_p, sum_a2_p) + ((rcls_p,) if use_classes else ())
-    win_d, win_t, best, s, o, valid, q = jax.lax.map(chunk_fn, chunk_args)
+    win_m, q = jax.lax.map(chunk_fn, chunk_args)
+    unpad = lambda x: x.reshape(num_chunks * rc)[:r]
+    res = _winners(ranges, sum_a, sum_a2, cb, cfg, unpad(win_m), unpad(q))
+    if range_mask is not None:
+        res = mask_ranges_result(res, range_mask)
+    return res
 
-    unpad = lambda x: x.reshape(num_chunks * rc, *x.shape[2:])[:r]
-    s = unpad(s)
-    o = unpad(o)
-    valid = unpad(valid)
-    # Classifier rejected everything: reference falls back to the default
-    # item_match_t (s=0, o=0 => decoder writes black; Encoder semantics of
-    # TransformEstimator2.hpp:30 default + DecodeUtils.hpp:22-23).
-    s = jnp.where(valid, s, 0.0)
-    o = jnp.where(valid, o, 0.0)
-    res = SearchResult(
-        domain_idx=unpad(win_d),
-        transform=unpad(win_t),
-        distance=unpad(best),
-        s=s,
-        o=o,
-        valid=valid,
-        key=unpad(q),
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+_NUM_CLASS_BINS = 7  # classifier bins -1..5 shifted to 0..6
+
+
+def _class_layout(classes01: jnp.ndarray, block: int, num_bins: int):
+    """Tile-aligned class-sorted layout for ``n`` items in classes
+    0..num_bins-1.
+
+    Returns (pos [n] i32 destination of each item in the padded buffer,
+    seg_start [num_bins+1] i32 first padded index of each class,
+    counts [num_bins+1] i32, tile_cum [num_bins] i32 cumulative tile
+    counts — tile i belongs to class searchsorted(tile_cum, i, 'right')).
+    The trailing zero entries of seg_start/counts stand for "no class".
+
+    The padded buffer has round_up(n, block) + num_bins*block slots, which
+    covers the worst per-class alignment waste.  Stable: items of one class
+    keep their order, so search order survives inside each segment.
+    """
+    # counting sort with fixed bins: per-class running rank from a cumsum
+    # over the one-hot class matrix (no argsort, no scatter)
+    onehot = (
+        classes01[:, None] == jnp.arange(num_bins, dtype=classes01.dtype)
+    ).astype(jnp.int32)  # [n, num_bins]
+    csum = jnp.cumsum(onehot, axis=0)  # inclusive per-class counts
+    counts = csum[-1]  # [num_bins]
+    tiles = -(-counts // block)  # ceil
+    tile_cum = jnp.cumsum(tiles)  # [num_bins]
+    seg_start_t = jnp.concatenate([jnp.zeros(1, tiles.dtype), tile_cum[:-1]])
+    seg_start = (seg_start_t * block).astype(jnp.int32)  # element units
+    rank = (onehot * csum).sum(axis=1) - 1
+    pos = (onehot * seg_start[None, :]).sum(axis=1) + rank.astype(jnp.int32)
+    seg_start1 = jnp.concatenate([seg_start, jnp.zeros(1, jnp.int32)])
+    counts1 = jnp.concatenate([counts.astype(jnp.int32), jnp.zeros(1, jnp.int32)])
+    return pos, seg_start1, counts1, tile_cum.astype(jnp.int32)
+
+
+@partial(jax.jit, static_argnames=("cfg", "interpret", "blocks"))
+def search_kernel(
+    ranges: jnp.ndarray,
+    sum_a: jnp.ndarray,
+    sum_a2: jnp.ndarray,
+    cb: Codebook,
+    range_classes: jnp.ndarray | None,
+    domain_classes: jnp.ndarray | None,
+    cfg: EncoderConfig,
+    domain_mask: jnp.ndarray | None = None,
+    range_mask: jnp.ndarray | None = None,
+    interpret: bool = False,
+    blocks=None,
+) -> SearchResult:
+    """``search`` through the Pallas kernel: same winners, same fields.
+
+    Ranges and codebook columns are laid out sorted by class bin into
+    tile-aligned segments, so each range tile visits only its own class's
+    column tiles (ops/search_kernel.py).  Ranges excluded by ``range_mask``
+    and domains excluded by ``domain_mask`` are parked in one extra row or
+    column bin that no tile visits: they cost no kernel work.  Column order
+    within a class stays (domain asc, transform desc) because the class
+    sort is stable, so the reference tie-break is preserved.
+
+    ``interpret=True`` runs the kernel in the Pallas interpreter (CPU tests).
+    """
+    from ..ops import search_kernel as sk
+
+    blocks = blocks or sk.DEFAULT_BLOCKS
+    block_r, block_m = blocks[:2]
+    r, k = ranges.shape
+    d, t, _ = cb.values.shape
+    m = d * t
+    classed = range_classes is not None and cfg.use_classifier
+    n_bins = _NUM_CLASS_BINS if classed else 1
+    if classed:
+        rbin = (range_classes + 1).astype(jnp.int32)  # bins -1..5 -> 0..6
+        dbin = (domain_classes + 1).astype(jnp.int32)
+    else:
+        rbin = jnp.zeros((r,), jnp.int32)
+        dbin = jnp.zeros((d,), jnp.int32)
+    n_row_bins = n_bins + (range_mask is not None)
+    n_col_bins = n_bins + (domain_mask is not None)
+    if range_mask is not None:
+        rbin = jnp.where(range_mask, rbin, n_bins)
+    if domain_mask is not None:
+        dbin = jnp.where(domain_mask, dbin, n_bins)
+
+    rpos, _, _, r_tile_cum = _class_layout(rbin, block_r, n_row_bins)
+    cpos, c_start, c_count, _ = _class_layout(jnp.repeat(dbin, t), block_m,
+                                              n_col_bins)
+    r_pad = _round_up(r, block_r) + n_row_bins * block_r
+    m_pad = _round_up(m, block_m) + n_col_bins * block_m
+    # inverse maps (padding slots point at a zero row appended to the source)
+    inv_r = jnp.full((r_pad,), r, jnp.int32).at[rpos].set(
+        jnp.arange(r, dtype=jnp.int32))
+    inv_col = jnp.full((m_pad,), m, jnp.int32).at[cpos].set(
+        jnp.arange(m, dtype=jnp.int32))
+
+    # per range tile: its class bin's column-tile span.  Masked-range tiles
+    # and padding tiles past the last bin visit nothing.
+    tile_bin = (r_tile_cum[None, :]
+                <= jnp.arange(r_pad // block_r)[:, None]).sum(axis=1)
+    b = jnp.minimum(tile_bin, n_bins - 1)
+    tile_lo = (c_start[b] // block_m).astype(jnp.int32)
+    tile_cnt = jnp.where(tile_bin < n_bins, -(-c_count[b] // block_m),
+                         0).astype(jnp.int32)
+    tile_end = (c_start[b] + c_count[b]).astype(jnp.int32)
+
+    def sort(x, inv):
+        """Rows of x in the sorted layout (zero rows for padding slots)."""
+        return jnp.concatenate([x, jnp.zeros((1,) + x.shape[1:], x.dtype)])[inv]
+
+    # search-order columns: m = d*T + (T-1-t)
+    cb_cols = cb.values[:, ::-1, :].reshape(m, k)
+    kp = sk.padded_k(k)
+    pad_k = lambda x: jnp.pad(x, ((0, 0), (0, kp - k)))
+    if sk.use_int8(k):
+        a = (ranges.astype(jnp.int32) - 128).astype(jnp.int8)
+        b4 = jnp.round(cb_cols * 4.0).astype(jnp.int32)
+        cols = ((b4 >> 3).astype(jnp.int8), (b4 & 7).astype(jnp.int8))
+    else:
+        a = ranges
+        cols = (cb_cols,)
+    a_s = sort(pad_k(a), inv_r)
+    cols_s = tuple(sort(pad_k(c), inv_col) for c in cols)
+    sb_s = sort(cb.sum[:, ::-1].reshape(m), inv_col)
+    aux_s = sort(_aux(cb, cfg)[:, ::-1].reshape(m), inv_col)
+    mode_kw = _mode_kw(cfg, cb, k)
+    q_s, idx_s = sk.fused_search(
+        a_s, sort(sum_a, inv_r), sort(sum_a2, inv_r), cols_s, sb_s, aux_s, tile_lo, tile_cnt, tile_end,
+        k=k, criterion=cfg.criterion, so_mode=cfg.so_mode, s_max=cfg.s_max,
+        inv_norm=mode_kw["inv_norm"], threshold=cfg.rms_threshold, t_n=t,
+        blocks=blocks, interpret=interpret,
     )
+    # back to range order; sorted winner column -> search-order column
+    q = q_s[rpos]
+    win_m = inv_col[jnp.clip(idx_s[rpos], 0, m_pad - 1)]
+    res = _winners(ranges, sum_a, sum_a2, cb, cfg, win_m, q)
     if range_mask is not None:
         res = mask_ranges_result(res, range_mask)
     return res

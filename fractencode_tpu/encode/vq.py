@@ -1,6 +1,6 @@
 """Vector-quantization codebook training (LBG / k-means).
 
-TPU-native port of the reference's ``generateCodebook``
+Port of the reference's ``generateCodebook``
 (``/root/reference/encode/CodebookGenerator.hpp:84-162``): random unique
 seeding, assign-to-nearest + centroid update until the max codeword movement
 drops below epsilon or ``max_steps`` (reference default 200).  Like the
@@ -9,8 +9,8 @@ small codebook over the sampled domain vectors and search only the domains
 whose codeword matches the range's (a learned generalization of the 6-class
 brightness classifier).
 
-TPU-first differences: the assign step is one [N, K] x [K, D] matmul on the
-MXU instead of a per-vector linear scan, the update is a segment-sum, and the
+Differences: the assign step is one [N, K] x [K, D] matmul instead of a
+per-vector linear scan, the update is a segment-sum, and the
 loop is a ``lax.while_loop`` with static shapes (empty clusters keep their
 previous codeword, matching the reference's "no members -> unchanged"
 behaviour implied by its epsilon loop).
@@ -26,7 +26,7 @@ __all__ = ["train_codebook", "assign_codes"]
 
 
 def _pairwise_sq_dists(x, c):
-    """[N, M] squared distances via the five-sums identity (MXU matmul)."""
+    """[N, M] squared distances via the five-sums identity (one matmul)."""
     xx = (x * x).sum(axis=1, keepdims=True)  # [N, 1]
     cc = (c * c).sum(axis=1)[None, :]  # [1, M]
     xc = jax.lax.dot_general(

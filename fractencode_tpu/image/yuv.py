@@ -3,7 +3,7 @@
 Same (BT.601-flavoured) coefficients as the reference
 (``/root/reference/image/ImageIO.cpp:50-52,79-81``).  Differences by design:
 the reference allocates 64-byte-aligned strides + 32 padding for SIMD
-(``ImageIO.cpp:19-23``); on TPU planes are dense arrays and XLA handles
+(``ImageIO.cpp:19-23``); here planes are dense arrays and XLA handles
 layout, so stride == width.
 
 Chroma subsampling parity: the reference writes U/V at (x//2, y//2) for every

@@ -1,3 +1,2 @@
-from .matcher_pallas import fused_search
-
-__all__ = ["fused_search"]
+"""Device operations: ``rank`` (the rank algebra both search routes share;
+no kernel code) and ``search_kernel`` (the Pallas search kernel)."""

@@ -1,11 +1,12 @@
 """Device mesh helpers.
 
 The reference's only parallelism is a mutex-guarded thread pool
-(``/root/reference/encode/EncodingEngine2.hpp:118-171``).  The TPU-native
-equivalent is a ``jax.sharding.Mesh``: static sharding over named axes
-replaces dynamic work stealing (uniform cost per range block once
-data-dependent early-exit is dropped), and XLA collectives over ICI replace
-shared memory.
+(reference ``encode/EncodingEngine2.hpp:118-171``).  Here it is a
+``jax.sharding.Mesh``: static sharding over named axes replaces dynamic
+work stealing (uniform cost per range block once data-dependent early-exit
+is dropped), and XLA collectives replace shared memory.  ``make_mesh`` only
+reshapes ``jax.devices()``: the GPUs of one host are joined all to all by
+NVLink, so any assignment of devices to mesh positions is equally good.
 
 Axes:
   * ``data``   — independent images (batch): the pure data-parallel axis.

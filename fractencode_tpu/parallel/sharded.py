@@ -15,7 +15,7 @@ Replaces the reference's single-host thread pool (SURVEY.md section 2,
       - **domain sharding**: each device builds only ITS row-band of the
         domain codebook (O(codebook/n) build memory), scores ALL ranges
         against it, and the global winner is reduced with an
-        argmax-allreduce over ICI on the rank key (``all_gather`` of the
+        argmax-allreduce on the rank key (``all_gather`` of the
         per-shard (q, winner) pairs + composite argmax).
       - **ring streaming**: each device builds its codebook row-band once and
         the shards then rotate around the ring (``ppermute``), visiting every
@@ -32,7 +32,9 @@ tie-break bitwise.  Global tie-break = lowest global search-order column,
 exactly the reference's domain-ascending/transform-descending rule.
 
 Everything runs under one ``jax.jit`` so XLA overlaps collectives with
-compute.
+compute.  XLA hands the collectives to NCCL; the cards of one host are
+joined all to all by NVLink, so the mesh follows the algorithm alone and no
+axis is laid out for a ring or torus topology.
 """
 from __future__ import annotations
 
@@ -48,13 +50,8 @@ from ..core.grid import uniform_grid
 from ..core.stats import integral_image
 from ..encode.codebook import build_codebook, extract_ranges
 from ..encode.encoder import EncodeResult
-from ..encode.matcher import (
-    SearchResult,
-    _BIG,
-    search,
-    search_pallas,
-    search_pallas_classed,
-)
+from ..encode.matcher import SearchResult, _BIG
+from ..encode.route import resolve_route, run_search
 from ..params import EncoderConfig
 from .mesh import DATA_AXIS, SEARCH_AXIS
 
@@ -68,54 +65,10 @@ __all__ = [
 STRATEGIES = ("ranges", "domains", "ring")
 
 
-def _use_pallas(cfg: EncoderConfig) -> bool:
-    # rms_threshold > 0 runs in the kernels too (the early-accept frontier
-    # is a prefix mask + freeze; ops.matcher_pallas._apply_frontier), and
-    # the cross-shard combines below reconstruct the global scan order.
-    if cfg.backend == "pallas":
-        return True
-    return cfg.backend == "auto" and jax.default_backend() == "tpu"
-
-
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
-
-
-def _search_any(ranges, sum_a, sum_a2, cb, rcls, dcls, cfg: EncoderConfig,
-                domain_mask=None):
-    """Backend dispatch shared by every sharded strategy: the Pallas classed
-    kernel when a classifier is active, the dense Pallas kernel otherwise,
-    the jnp oracle on CPU or when cfg rules Pallas out.  ``domain_mask``
-    marks geometry-invalid domains (tail padding / off-image rows)."""
-    if _use_pallas(cfg):
-        if cfg.use_classifier and rcls is not None:
-            return search_pallas_classed(
-                ranges, sum_a, sum_a2, cb, rcls, dcls, cfg,
-                domain_mask=domain_mask, interpret=_interpret(),
-            )
-        if domain_mask is not None:
-            # the dense kernel's only masking hook is the class compare:
-            # express validity as a class bit (0 == valid, -4 == masked)
-            t = cb.values.shape[1]
-            rcls0 = jnp.zeros((ranges.shape[0],), jnp.int32)
-            ccls0 = jnp.where(jnp.repeat(domain_mask, t), 0, -4).astype(jnp.int32)
-            mcfg = cfg if cfg.use_classifier else _with_classifier(cfg)
-            return search_pallas(
-                ranges, sum_a, sum_a2, cb, rcls0, ccls0, mcfg,
-                interpret=_interpret(),
-            )
-        return search_pallas(
-            ranges, sum_a, sum_a2, cb, rcls, dcls, cfg, interpret=_interpret(),
-        )
-    return search(ranges, sum_a, sum_a2, cb, rcls, dcls, cfg,
-                  domain_mask=domain_mask)
-
-
-@functools.lru_cache(maxsize=None)
-def _with_classifier(cfg: EncoderConfig) -> EncoderConfig:
-    import dataclasses
-
-    return dataclasses.replace(cfg, use_classifier=True)
+def _use_kernel(cfg: EncoderConfig) -> bool:
+    # per-image bodies go through lax.map on the kernel route (one kernel
+    # launch per frame) and through vmap on the plain route
+    return resolve_route(cfg) != "jnp"
 
 
 def _plane_search_arrays(plane, cfg: EncoderConfig, r_lo: int, r_count: int):
@@ -143,8 +96,8 @@ def _plane_search_arrays(plane, cfg: EncoderConfig, r_lo: int, r_count: int):
         domain_classes = None
         range_classes = None
 
-    return _search_any(ranges, sum_a, sum_a2, cb, range_classes,
-                       domain_classes, cfg)
+    return run_search(ranges, sum_a, sum_a2, cb, range_classes,
+                      domain_classes, cfg)
 
 
 def _result_tuple(res: SearchResult):
@@ -211,7 +164,7 @@ def _range_arrays(plane, cfg: EncoderConfig):
 
 def _local_m(res: SearchResult, t: int):
     """Search-order column of the winner within its shard:
-    m = d*T + (T-1-t) (see ops.matcher_pallas docstring)."""
+    m = d*T + (T-1-t) (see ops/search_kernel.py)."""
     return res.domain_idx * t + (t - 1) - res.transform
 
 
@@ -252,7 +205,7 @@ def _acc_merge(x, y):
 def _ring_search(ranges, sum_a, sum_a2, rcls, cb_local, dcls_local, idx,
                  cfg: EncoderConfig, *, n: int, t_n: int, rows_per: int,
                  nx: int, ny: int, d_local: int):
-    """Ring-streamed codebook search: the local shard rotates around the ICI
+    """Ring-streamed codebook search: the local shard rotates around the device
     ring (``ppermute``) past the resident ranges; the carry keeps the running
     (rank key, global column) winner with the single-device first-occurrence
     tie-break.  Peak codebook memory stays O(codebook/n) per device for the
@@ -261,11 +214,12 @@ def _ring_search(ranges, sum_a, sum_a2, rcls, cb_local, dcls_local, idx,
 
     The ring rotates so device ``idx`` visits shards idx, idx+1, ..., n-1,
     0, ..., idx-1 — two runs that are each ASCENDING in global column order.
-    With ``rms_threshold`` > 0 the early-accept frontier
-    (TransformEstimator2.hpp:40-41) needs the global scan order, so the two
-    runs keep separate accumulators, each frozen at its own first hit shard
-    (group B = shards < idx holds the globally FIRST columns): the winner is
-    B's frozen best when B hit, else composite(B, frozen A).
+    The early-accept frontier (TransformEstimator2.hpp:40-41; live at every
+    threshold, since an exact fit stops the scan even at rms_threshold 0)
+    needs the global scan order, so the two runs keep separate
+    accumulators, each frozen at its own first hit shard (group B = shards
+    < idx holds the globally FIRST columns): the winner is B's frozen best
+    when B hit, else composite(B, frozen A).
 
     Returns the 6-tuple (domain, transform, s, o, distance, valid)."""
     m_local = d_local * t_n
@@ -273,7 +227,6 @@ def _ring_search(ranges, sum_a, sum_a2, rcls, cb_local, dcls_local, idx,
     # (idx + hop) % n: ascending visit order from idx
     perm = [(i, (i - 1) % n) for i in range(n)]
     r = ranges.shape[0]
-    use_thr = cfg.rms_threshold > 0.0
     if dcls_local is None:
         # carry needs static structure; use a zero placeholder
         dcls_c = jnp.zeros((d_local,), jnp.int32)
@@ -287,22 +240,19 @@ def _ring_search(ranges, sum_a, sum_a2, rcls, cb_local, dcls_local, idx,
                               grid=cb_local.grid, inv_var=ivar)
         local_rows = src * rows_per + jnp.arange(d_local) // nx
         dmask = local_rows < ny
-        res = _search_any(ranges, sum_a, sum_a2, cb_h, rcls,
-                          dc if cfg.use_classifier else None,
-                          cfg, domain_mask=dmask)
+        res = run_search(ranges, sum_a, sum_a2, cb_h, rcls,
+                         dc if cfg.use_classifier else None,
+                         cfg, domain_mask=dmask)
         gcol = src * m_local + _local_m(res, t_n)
-        if use_thr:
-            in_b = src < idx  # traced scalar; group B = globally-first shards
-            hit = res.valid & (res.distance <= cfg.rms_threshold)
-            acc_a = _acc_update(acc_a, res, gcol, gate=(~in_b) & ~frz_a)
-            acc_b = _acc_update(acc_b, res, gcol, gate=in_b & ~frz_b)
-            frz_a = frz_a | ((~in_b) & hit)
-            frz_b = frz_b | (in_b & hit)
-        else:
-            acc_a = _acc_update(acc_a, res, gcol)
+        in_b = src < idx  # traced scalar; group B = globally-first shards
+        hit = res.valid & (res.distance <= cfg.rms_threshold)
+        acc_a = _acc_update(acc_a, res, gcol, gate=(~in_b) & ~frz_a)
+        acc_b = _acc_update(acc_b, res, gcol, gate=in_b & ~frz_b)
+        frz_a = frz_a | ((~in_b) & hit)
+        frz_b = frz_b | (in_b & hit)
         return (
             acc_a, acc_b, frz_a, frz_b,
-            # rotate the shard to the next device (ICI ring)
+            # rotate the shard to the next device of the ring
             jax.lax.ppermute(vals, SEARCH_AXIS, perm),
             jax.lax.ppermute(sums, SEARCH_AXIS, perm),
             jax.lax.ppermute(sums2, SEARCH_AXIS, perm),
@@ -317,15 +267,11 @@ def _ring_search(ranges, sum_a, sum_a2, rcls, cb_local, dcls_local, idx,
         cb_local.inv_var_or_compute(), dcls_c,
     )
     acc_a, acc_b, frz_a, frz_b, *_ = jax.lax.fori_loop(0, n, hop, init)
-    if use_thr:
-        # group B's columns all precede group A's: if B froze, the reference
-        # scan never reaches A at all
-        merged = _acc_merge(acc_b, acc_a)
-        pick_b = frz_b
-        final = tuple(jnp.where(pick_b, b, m) for b, m in zip(acc_b, merged))
-        bq, bcol, bdist, bs, bo, bvalid = final
-    else:
-        bq, bcol, bdist, bs, bo, bvalid = acc_a
+    # group B's columns all precede group A's: if B froze, the reference
+    # scan never reaches A at all
+    merged = _acc_merge(acc_b, acc_a)
+    bq, bcol, bdist, bs, bo, bvalid = (
+        jnp.where(frz_b, b, m) for b, m in zip(acc_b, merged))
     # fully-rejected ranges never update the carry: bcol stays 0, which
     # decodes to (domain 0, transform T-1) — exactly the single-device
     # argmin's first-column fallback
@@ -362,16 +308,15 @@ def _encode_batch_impl(planes, cfg: EncoderConfig, mesh: Mesh, strategy: str):
             def one(plane):
                 return _result_tuple(_plane_search_arrays(plane, cfg, r_lo, r_per))
 
-            if _use_pallas(cfg):
-                # pallas_call (dynamic grid + scalar prefetch) doesn't vmap;
-                # stream local images through the kernel sequentially — same
-                # single-chip throughput pattern as encode_batch.
+            if _use_kernel(cfg):
+                # stream local images through the kernel sequentially, the
+                # same pattern as encode_batch
                 return jax.lax.map(one, planes_local)
             return jax.vmap(one)(planes_local)
 
         out_spec = tuple([P(DATA_AXIS, SEARCH_AXIS)] * 6)
         # check_vma=False: pallas_call can't declare varying-axes metadata on
-        # its outputs, so the analysis can't type the Pallas-backend body.
+        # its outputs, so the analysis can't type the kernel-route body.
         outs = shard_map(
             body,
             mesh=mesh,
@@ -392,30 +337,30 @@ def _encode_batch_impl(planes, cfg: EncoderConfig, mesh: Mesh, strategy: str):
                 # this device's codebook row-band only: O(D/n) build memory
                 cb, dcls, dmask = _local_band_codebook(plane, cfg, idx, statics)
                 ranges, sum_a, sum_a2, rcls = _range_arrays(plane, cfg)
-                local = _search_any(ranges, sum_a, sum_a2, cb, rcls, dcls,
-                                    cfg, domain_mask=dmask)
+                local = run_search(ranges, sum_a, sum_a2, cb, rcls, dcls,
+                                   cfg, domain_mask=dmask)
 
-                # ---- argmax-allreduce on the rank key over ICI ----
+                # ---- argmax-allreduce on the rank key ----
                 # per-shard (q, winner); global winner = max q, ties to the
                 # lowest shard (shards hold ascending global columns, and the
                 # in-shard winner is already the first occurrence).
                 qs = jax.lax.all_gather(local.key, SEARCH_AXIS)  # [S, R]
-                if cfg.rms_threshold > 0.0:
-                    # early-accept across shards: a shard has a hit iff its
-                    # frozen local best is under threshold (freezing happens
-                    # exactly when a hit occurs).  Shards hold contiguous
-                    # ascending column slabs, so the reference scan never
-                    # reaches shards PAST the first one with a hit — mask
-                    # them out of the argmax.
-                    hits = jax.lax.all_gather(
-                        local.valid & (local.distance <= cfg.rms_threshold),
-                        SEARCH_AXIS,
-                    )  # [S, R]
-                    any_hit = hits.any(axis=0)
-                    s_star = jnp.argmax(hits, axis=0)  # first hit shard
-                    sid = jnp.arange(n_search, dtype=jnp.int32)[:, None]
-                    beyond = any_hit[None, :] & (sid > s_star[None, :])
-                    qs = jnp.where(beyond, -_BIG, qs)
+                # early accept across shards (at every threshold: an exact
+                # fit stops the scan even at rms_threshold 0): a shard has a
+                # hit iff its frozen local best is under threshold (freezing
+                # happens exactly when a hit occurs).  Shards hold
+                # contiguous ascending column slabs, so the reference scan
+                # never reaches shards PAST the first one with a hit — mask
+                # them out of the argmax.
+                hits = jax.lax.all_gather(
+                    local.valid & (local.distance <= cfg.rms_threshold),
+                    SEARCH_AXIS,
+                )  # [S, R]
+                any_hit = hits.any(axis=0)
+                s_star = jnp.argmax(hits, axis=0)  # first hit shard
+                sid = jnp.arange(n_search, dtype=jnp.int32)[:, None]
+                beyond = any_hit[None, :] & (sid > s_star[None, :])
+                qs = jnp.where(beyond, -_BIG, qs)
                 winner = jnp.argmax(qs, axis=0)  # first (lowest shard) on ties
                 sel = lambda x: jax.lax.all_gather(x, SEARCH_AXIS)[
                     winner, jnp.arange(num_ranges)
@@ -431,14 +376,14 @@ def _encode_batch_impl(planes, cfg: EncoderConfig, mesh: Mesh, strategy: str):
                     valid,
                 )
 
-            if _use_pallas(cfg):
+            if _use_kernel(cfg):
                 return jax.lax.map(one, planes_local)
             return jax.vmap(one)(planes_local)
 
         out_spec = tuple([P(DATA_AXIS, None)] * 6)
         # check_vma=False: after the all_gather + argmax-allreduce the outputs
         # ARE replicated over 'search', but the varying-axes analysis cannot
-        # prove it statically (and the Pallas body can't be typed at all).
+        # prove it statically (and the kernel-route body can't be typed).
         outs = shard_map(
             body,
             mesh=mesh,
@@ -466,7 +411,7 @@ def _encode_batch_impl(planes, cfg: EncoderConfig, mesh: Mesh, strategy: str):
                                     rows_per=statics[3], nx=statics[2],
                                     ny=statics[1], d_local=statics[-1])
 
-            if _use_pallas(cfg):
+            if _use_kernel(cfg):
                 return jax.lax.map(one, planes_local)
             return jax.vmap(one)(planes_local)
 
@@ -541,7 +486,7 @@ def _encode_sharded_image_impl(plane, cfg: EncoderConfig, mesh: Mesh,
 
         Halo exchange: domains whose origin row is near the south edge read
         ``sw - step`` rows owned by the next device — fetched with a ring
-        ppermute over ICI (the reference never needed this: one address
+        ppermute (the reference never needed this: one address
         space; SURVEY.md section 2 maps it to the 2048^2+ configs)."""
         idx = jax.lax.axis_index(SEARCH_AXIS)
         top_rows = jax.lax.ppermute(
@@ -562,7 +507,7 @@ def _encode_sharded_image_impl(plane, cfg: EncoderConfig, mesh: Mesh,
         if codebook == "ring":
             # ring-streamed codebook shards (the 4K+ "too big to replicate"
             # variant of config 4): O(codebook/n) peak memory, shards rotate
-            # over ICI past this device's resident range band
+            # past this device's resident range band
             ranges = extract_ranges(plane_local.astype(jnp.float32),
                                     cfg.target_size)
             sum_a = ranges.sum(axis=-1)
@@ -580,7 +525,7 @@ def _encode_sharded_image_impl(plane, cfg: EncoderConfig, mesh: Mesh,
                 ny=ny_global, d_local=d_local,
             )
 
-        # replicate the codebook: all_gather over ICI; device-major concat ==
+        # replicate the codebook: all_gather; device-major concat ==
         # global row-major domain order because bands are contiguous rows
         vals = jax.lax.all_gather(cb_local.values, SEARCH_AXIS)
         sums = jax.lax.all_gather(cb_local.sum, SEARCH_AXIS)
@@ -612,8 +557,8 @@ def _encode_sharded_image_impl(plane, cfg: EncoderConfig, mesh: Mesh,
             dcls = None
             rcls = None
 
-        res = _search_any(ranges, sum_a, sum_a2, cb, rcls, dcls, cfg,
-                          domain_mask=domain_mask)
+        res = run_search(ranges, sum_a, sum_a2, cb, rcls, dcls, cfg,
+                         domain_mask=domain_mask)
         return _result_tuple(res)
 
     out_spec = tuple([P(SEARCH_AXIS)] * 6)
@@ -665,7 +610,7 @@ def _decode_batch_impl(dom, tr, s, o, valid, template: EncodeResult, mesh: Mesh,
         # Inputs arrive sharded [B/nd, R/ns] exactly as the sharded encode
         # produced them (in_specs below mirror its out_specs — no SPMD
         # resharding, no "involuntary full rematerialization"); reassemble
-        # the full per-image rows with one explicit all_gather over ICI.
+        # the full per-image rows with one explicit all_gather.
         gather = lambda x: jax.lax.all_gather(x, SEARCH_AXIS, axis=1, tiled=True)
         dom_l, tr_l, s_l, o_l, valid_l = map(
             gather, (dom_l, tr_l, s_l, o_l, valid_l)
@@ -684,7 +629,7 @@ def _decode_batch_impl(dom, tr, s, o, valid, template: EncodeResult, mesh: Mesh,
             ss = jnp.where(v1, s1, 0.0)
             oo = jnp.where(v1, o1, 0.0)
             if pyramid:
-                # the coarse-to-fine fast path at pod scale: same fixed
+                # the coarse-to-fine fast path, sharded: same fixed
                 # floor as decode.decoder._decode_core (semantics and
                 # measured rationale there); the init derives from the
                 # data-varying maps, so no pcast is needed

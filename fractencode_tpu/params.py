@@ -1,6 +1,6 @@
 """Encoder/decoder configuration.
 
-TPU-native replacement for ``encode_parameters_t``
+Replacement for ``encode_parameters_t``
 (``/root/reference/encode/encode_parameters.h:5-14``) and the CLI-level decode
 knobs (``main.cpp:29-104``).  The struct is frozen/hashable so it can be a
 static argument to ``jax.jit``.
@@ -56,11 +56,10 @@ class EncoderConfig:
     vq_seed: int = 0  # deterministic seeding
 
     # Execution
-    range_chunk: int = 2048  # ranges scored per scan step (memory knob)
-    backend: str = "auto"  # 'auto' | 'jnp' | 'pallas'
-    int8_matmul: bool = True  # exact int8 MXU decomposition of SumAB in the
-    #   Pallas kernels (bit-identical to the f32 path; ~4x the MXU rate).
-    #   Auto-disabled when K = target_size^2 > ops.matcher_pallas.INT8_MAX_K.
+    range_chunk: int = 2048  # ranges scored per scan step of the plain route
+    # search route: 'auto' | 'jnp' | 'pallas' | 'pallas_interpret'
+    # (encode/route.py is the one place that resolves it)
+    backend: str = "auto"
 
     def __post_init__(self):
         if self.target_size >= self.source_size or self.target_size < 2:
@@ -73,6 +72,8 @@ class EncoderConfig:
             raise ValueError(f"bad so_mode {self.so_mode}")
         if not 1 <= self.num_transforms <= 8:
             raise ValueError("num_transforms must be in 1..8")
+        if self.backend not in ("auto", "jnp", "pallas", "pallas_interpret"):
+            raise ValueError(f"bad backend {self.backend}")
         if not 0 <= self.vq_classes <= 7:
             raise ValueError("vq_classes must be 0 (off) or 1..7 (the classed "
                              "kernel layout carries 7 class bins)")
@@ -121,7 +122,7 @@ class DecoderConfig:
     # gather rows all shrink), and the upsampled result starts the
     # fixed-count full-res refinement a few contraction steps from the
     # fixed point — measured ~2x faster to the same PSNR
-    # (docs/PERF_NOTES.md round 5).  OFF by default: the flat start is the
+    # (measured on bits and PSNR, which do not depend on the device).  OFF by default: the flat start is the
     # reference-parity mode (Encoder2.hpp:68-70) pinned pixel-identical by
     # tests/test_reference_parity.py; the CLI and bench enable it.
     pyramid: bool = False
@@ -130,11 +131,9 @@ class DecoderConfig:
     # defaults keep a safety margin above that floor.
     pyramid_steps: int = 8  # iterations at the coarsest scale
     pyramid_refine_steps: int = 4  # iterations at intermediate scales
-    # Coarse scales to use (1 => half resolution only).  Measured on TPU
-    # (scripts/micro_scale_step.py): the half-res step costs ~0.4x the
-    # full-res step, but quarter-res costs MORE than half-res — the [R, 1]
-    # two-byte-row gather lowers pathologically — so one coarse level is
-    # the sweet spot at every size measured.
+    # Coarse scales to use (1 => half resolution only).  A half-res step
+    # moves about a quarter of a full-res step's pixels; whether deeper
+    # levels pay on the H100 awaits measurement (ROADMAP Queue 1 item 4).
     pyramid_levels: int = 1
     # Full-res iterations after the pyramid init.  Measured (scripts/
     # measure_pyramid_steps.py): PSNR saturates after 4-5 full-res steps

@@ -1,6 +1,6 @@
 // Native bit-packing for the compressed stream.
 //
-// TPU-native framework, host-side runtime component: the reference keeps its
+// Host-side runtime component: the reference keeps its
 // whole runtime in C++ (SURVEY.md L0/C17); here only the host-bound codec hot
 // path is native — packing/unpacking millions of variable-width integer
 // fields per 4K frame, which is branchy bit twiddling Python/numpy does with

@@ -1,14 +1,14 @@
-"""Rate-distortion curve sweep (VERDICT r4 #3).
+"""Rate-distortion curve sweep.
 
 Sweeps the codec's operating points on the Lenna fixtures:
   * uniform 512^2: (s_bits, o_bits) in {(4,6), (5,7), (6,8)}
   * quadtree 1024^2: the same quantizer points x error_threshold in
     {25, 50, 100}
-and writes ``docs/rd_curve.json`` in the gen_docs AUX-table schema; the
-table in docs/PERF_NOTES.md is generated from it (drift-checked).
+and writes ``docs/rd_curve.json`` (bits and PSNR only: they do not depend
+on the device).
 
 Encode runs once per geometry/threshold; only pack/decode vary per
-quantizer point.  Run on TPU (or CPU with patience).
+quantizer point.  Run on the GPU (or the CPU with patience).
 """
 import json
 import os

@@ -1,8 +1,6 @@
 """Speed/PSNR tradeoff of the learned VQ prune at 2048^2.
 
-Writes ``docs/vq_tradeoff.json`` in the gen_docs AUX-table schema so the
-PERF_NOTES table is generated and drift-checked from the measurement
-(VERDICT r4 #8: the tradeoff must not live only in prose)."""
+Writes ``docs/vq_tradeoff.json`` (times are the device's it ran on)."""
 import json
 import os
 import sys

@@ -1,28 +1,27 @@
 #!/usr/bin/env python
-"""Pod-scale batch encode driver (BASELINE config 5).
+"""Multi-process batch encode runner.
 
 Runs the multi-image batch encode + on-device fixed-point decode over a
-(data x search) device mesh, across one or many hosts.  This is the runnable
-artifact for the "multi-image batch across 2+ hosts" north-star config: the
-same script is launched once per host (SPMD), brings up ``jax.distributed``,
-splits the global batch with ``host_local_batch``, assembles the global
-sharded array, and reports frames/s + scaling.
+(data x search) device mesh, across one or many processes: the same script
+is launched once per process (SPMD), brings up ``jax.distributed``, splits
+the global batch with ``host_local_batch``, assembles the global sharded
+array, and reports frames/s.
 
-Single host (works anywhere, today):
+One process driving every local device:
 
     python scripts/encode_pod.py --batch 16 --size 512
 
-Multi-host TPU pod (same command on every host; standard JAX env vars or
-flags select the coordinator):
+Several processes (same command for each; nothing on the machine tells JAX
+of a cluster, so give the coordinator, the count and the id):
 
     python scripts/encode_pod.py --batch 64 --size 512 \
-        --coordinator host0:1234 --num-processes 4 --process-id $ID
+        --coordinator localhost:1234 --num-processes 4 --process-id $ID
 
-The encode itself is ``parallel.sharded.encode_batch_sharded`` — the mesh's
-``data`` axis spans hosts (each host feeds its local slice; DCN never sees
-the codebook), the ``search`` axis stays inside each host's ICI domain, which
-is exactly how the strategies' collectives (all_gather / ppermute ring) are
-meant to be laid out (SURVEY.md section 5).
+When several processes share one host with GPUs, each takes its own card
+(process i uses card i, or the single id ``--local-device-ids`` names): a
+JAX process reserves most of a card's memory when it starts.  The encode
+itself is ``parallel.sharded.encode_batch_sharded``; the mesh's ``data``
+axis spans processes.
 """
 from __future__ import annotations
 
@@ -42,8 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="GLOBAL batch size (must divide evenly over hosts)")
     p.add_argument("--size", type=int, default=512, help="square frame size")
     p.add_argument("--image", default=None,
-                   help="replicate this image as the batch (default: lenna "
-                        "if present, else random frames)")
+                   help="replicate this image as the batch (default: "
+                        "seeded natural content)")
     p.add_argument("--strategy", choices=["ranges", "domains", "ring"],
                    default="ranges")
     p.add_argument("--n-data", type=int, default=None,
@@ -58,6 +57,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--init-timeout", type=float, default=None,
                    help="seconds to wait for the coordinator before failing")
+    p.add_argument("--local-device-ids", default=None,
+                   help="comma-separated local card ids for this process "
+                        "(default with several processes on one host: "
+                        "card = process id)")
     return p
 
 
@@ -71,18 +74,16 @@ def resolve_mesh_shape(n_devices: int, n_hosts: int, n_data: int | None):
 
 
 def load_frames(args, per_host: int) -> np.ndarray:
-    lenna = "/root/reference/tests/input/lenna512x512.png"
-    path = args.image or (lenna if os.path.exists(lenna) else None)
-    if path:
+    if args.image:
         from fractencode_tpu.image import load_gray
 
-        base = np.asarray(load_gray(path))
-        reps = -(-args.size // base.shape[0])
+        base = np.asarray(load_gray(args.image))
+        reps = -(-args.size // min(base.shape))
         base = np.tile(base, (reps, reps))[: args.size, : args.size]
     else:
-        base = np.random.default_rng(0).integers(
-            0, 256, size=(args.size, args.size), dtype=np.uint8
-        )
+        from fractencode_tpu.image.synth import natural_image
+
+        base = natural_image(0, args.size, args.size)
     return np.stack([base] * per_host)
 
 
@@ -95,7 +96,11 @@ def main(argv=None) -> int:
         host_local_batch,
         initialize_multihost,
         is_multihost,
+        one_card_per_process,
     )
+    from fractencode_tpu.utils.cache import setup_compile_cache
+
+    setup_compile_cache()
 
     multi = (
         args.coordinator
@@ -103,8 +108,14 @@ def main(argv=None) -> int:
         or os.environ.get("JAX_COORDINATOR_ADDRESS")
     )
     if multi:
+        ids = (None if args.local_device_ids is None else
+               [int(i) for i in args.local_device_ids.split(",")])
+        ids = one_card_per_process(
+            args.coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS"),
+            args.num_processes, args.process_id, ids)
         info = initialize_multihost(args.coordinator, args.num_processes,
-                                    args.process_id, args.init_timeout)
+                                    args.process_id, args.init_timeout,
+                                    local_device_ids=ids)
         print(f"multihost up: {info}")
 
     import jax.numpy as jnp

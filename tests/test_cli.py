@@ -164,3 +164,25 @@ def test_rejection_stats_histogram(small_png, tmp_path, capsys):
     brute = int((rcls[:, None] != dcls[None, :]).sum())
     assert int(m.group(1)) == brute
     assert int(m.group(2)) == len(rcls) * len(dcls)
+
+
+def test_cli_round_trip_without_pillow(tmp_path, monkeypatch, capsys):
+    """PNG in, .ftc out, PNG back, with Pillow unimportable: the main path
+    needs no image library."""
+    import sys
+
+    from fractencode_tpu.image.io import read_png, write_png
+    from fractencode_tpu.image.synth import natural_image
+
+    src = str(tmp_path / "in.png")
+    write_png(src, natural_image(2, 32, 48, color=True))
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "PIL.Image", None)
+    rc = _run([src, "--color", "--out", str(tmp_path / "c.ftc"),
+               "--result", str(tmp_path / "out.png")], tmp_path)
+    assert rc == 0
+    rc = _run(["--decode-file", str(tmp_path / "c.ftc"),
+               "--result", str(tmp_path / "dec.png")], tmp_path)
+    assert rc == 0
+    assert read_png(str(tmp_path / "dec.png")).shape == (32, 48, 3)
+    assert "psnr:" in capsys.readouterr().out

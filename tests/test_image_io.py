@@ -108,3 +108,54 @@ def test_load_gray_matches_y_plane(tmp_path):
     Image.fromarray(rgb, mode="RGB").save(p)
     y, _, _ = load_planes(str(p))
     np.testing.assert_array_equal(load_gray(str(p)), y)
+
+
+@pytest.mark.parametrize("mode", ["L", "RGB", "RGBA", "LA"])
+@pytest.mark.parametrize("opts", [{}, {"optimize": True}, {"compress_level": 0}])
+def test_stdlib_png_reads_what_pillow_writes(tmp_path, mode, opts):
+    """The zlib+numpy PNG reader decodes Pillow's files (adaptive filters:
+    Sub, Up, Average, Paeth) to exactly Pillow's pixels."""
+    from fractencode_tpu.image.io import read_png
+    from fractencode_tpu.image.synth import natural_image
+
+    rgb = natural_image(5, 37, 29, color=True)
+    img = Image.fromarray(rgb, "RGB").convert(mode)
+    p = tmp_path / "x.png"
+    img.save(p, **opts)
+    np.testing.assert_array_equal(read_png(str(p)), np.asarray(Image.open(p)))
+    y_ours = load_gray(str(p))
+    y_pil = rgb_to_yuv420(np.asarray(Image.open(p).convert("RGB")))[0]
+    np.testing.assert_array_equal(y_ours, y_pil)
+
+
+@pytest.mark.parametrize("shape", [(19, 23), (16, 24, 3)])
+def test_stdlib_png_writes_what_pillow_reads(tmp_path, shape):
+    from fractencode_tpu.image.io import read_png, write_png
+
+    img = np.random.default_rng(3).integers(0, 256, size=shape, dtype=np.uint8)
+    p = str(tmp_path / "y.png")
+    write_png(p, img)
+    np.testing.assert_array_equal(np.asarray(Image.open(p)), img)
+    np.testing.assert_array_equal(read_png(p), img)
+
+
+def test_golden_pngs_decode_like_pillow():
+    import glob
+    import os
+
+    from fractencode_tpu.image.io import read_png
+
+    golden = os.path.join(os.path.dirname(__file__), "golden")
+    files = sorted(glob.glob(os.path.join(golden, "*.png")))
+    assert files
+    for f in files:
+        np.testing.assert_array_equal(read_png(f), np.asarray(Image.open(f)))
+
+
+def test_other_formats_name_the_missing_package(tmp_path, monkeypatch):
+    import sys
+
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "x.jpg")
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError, match="Pillow"):
+        load_gray(str(tmp_path / "x.jpg"))

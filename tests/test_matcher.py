@@ -134,16 +134,16 @@ def test_raw_distance_normalized_by_domain_area():
 
 
 def test_pallas_backend_threshold_native(rng):
-    """rms_threshold > 0 runs IN the Pallas kernels (no oracle fallback, no
+    """rms_threshold > 0 runs IN the Pallas kernel (no oracle fallback, no
     warning): the early-accept frontier is a prefix mask + per-row freeze
-    (ops.matcher_pallas._apply_frontier) and must equal the oracle bitwise
+    (ops.rank.apply_frontier) and must equal the oracle bitwise
     — here in the reference-compat 'raw' rank mode."""
     import warnings
 
     from fractencode_tpu import EncoderConfig, encode_plane
 
     img = rng.integers(0, 256, size=(64, 64), dtype=np.uint8)
-    cfg_p = EncoderConfig(rms_threshold=30.0, backend="pallas",
+    cfg_p = EncoderConfig(rms_threshold=30.0, backend="pallas_interpret",
                           criterion="raw", so_mode="reference")
     cfg_j = EncoderConfig(rms_threshold=30.0, backend="jnp",
                           criterion="raw", so_mode="reference")

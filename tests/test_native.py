@@ -60,3 +60,29 @@ def test_roundtrip(rng):
     np.testing.assert_array_equal(sq, sq2)
     np.testing.assert_array_equal(oq, oq2)
     np.testing.assert_array_equal(valid, valid2)
+
+def test_rebuilt_when_source_hash_changes(tmp_path, monkeypatch):
+    """The library is rebuilt from source whenever the source's content
+    hash differs from the recorded one (checkouts do not keep mtimes), and
+    only then."""
+    import shutil
+
+    from fractencode_tpu.codec import native
+
+    src = tmp_path / "bitpack.cpp"
+    so = tmp_path / "_bitpack.so"
+    stamp = tmp_path / "_bitpack.sha256"
+    shutil.copy(native._SRC, src)
+    builds = []
+    real_build = native._build
+    monkeypatch.setattr(native, "_build",
+                        lambda s, o: builds.append(s) or real_build(s, o))
+    args = (str(src), str(so), str(stamp))
+    assert native._ensure_built(*args) and so.exists() and len(builds) == 1
+    assert native._ensure_built(*args) and len(builds) == 1  # hash unchanged
+    os_mtime = so.stat().st_mtime
+    src.write_text(src.read_text() + "\n// changed\n")
+    assert native._ensure_built(*args) and len(builds) == 2
+    assert so.stat().st_mtime >= os_mtime
+    stamp.unlink()  # a binary of unknown provenance is rebuilt too
+    assert native._ensure_built(*args) and len(builds) == 3

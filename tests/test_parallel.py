@@ -45,10 +45,9 @@ def test_sharded_encode_matches_single_device(rng, devices_ok, strategy):
 @pytest.mark.parametrize("strategy", ["ranges", "domains", "ring"])
 def test_sharded_encode_pallas_backend(rng, devices_ok, strategy):
     """Every strategy with the Pallas kernel (interpreted on CPU):
-    validates the kernel's dynamic-grid pair list inside shard_map+lax.map,
-    the domain-mask bin, and the ring/argmax reducers — the real-pod hot
-    paths."""
-    cfg = EncoderConfig(source_size=16, target_size=4, backend="pallas")
+    validates the kernel inside shard_map+lax.map, the domain-mask bin, and
+    the ring/argmax reducers."""
+    cfg = EncoderConfig(source_size=16, target_size=4, backend="pallas_interpret")
     imgs = _images(rng, b=2, n=64)
     mesh = make_mesh(n_data=2, n_search=4)
     results = encode_batch_sharded(imgs, cfg, mesh, strategy=strategy)
@@ -221,7 +220,8 @@ def test_encode_pod_script_single_process(devices_ok, capsys):
     assert "frames/s" in out and "decode:" in out
 
 
-@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+@pytest.mark.parametrize("backend", ["jnp", "pallas_interpret"],
+                         ids=["jnp", "pallas"])
 def test_image_sharded_halo_ring_codebook(rng, devices_ok, backend):
     """Config-4-at-4K mechanics: image row-sharded AND the codebook
     ring-streamed (never replicated) — must still match single-device
@@ -261,7 +261,8 @@ def _smooth_images(rng, b=2, n=64):
     return _np.stack(out).astype(_np.uint8)
 
 
-@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+@pytest.mark.parametrize("backend", ["jnp", "pallas_interpret"],
+                         ids=["jnp", "pallas"])
 @pytest.mark.parametrize("strategy", ["ranges", "domains", "ring"])
 def test_sharded_threshold_matches_single(rng, devices_ok, strategy, backend):
     """rms_threshold > 0 across shards: the early-accept frontier follows
@@ -288,7 +289,8 @@ def test_sharded_threshold_matches_single(rng, devices_ok, strategy, backend):
 
 
 @pytest.mark.parametrize("codebook", ["replicate", "ring"])
-@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+@pytest.mark.parametrize("backend", ["jnp", "pallas_interpret"],
+                         ids=["jnp", "pallas"])
 def test_image_sharded_halo_threshold(rng, devices_ok, backend, codebook):
     """Halo-sharded single image with rms_threshold > 0: 'replicate' is one
     in-order search per device; 'ring' exercises _ring_search's two-group
@@ -307,3 +309,23 @@ def test_image_sharded_halo_threshold(rng, devices_ok, backend, codebook):
             np.asarray(getattr(sharded, f)), np.asarray(getattr(single, f)),
             err_msg=f"backend={backend} codebook={codebook} field={f}",
         )
+
+
+@pytest.mark.parametrize("strategy", ["domains", "ring"])
+def test_sharded_exact_fit_ends_scan_at_threshold_zero(devices_ok, strategy):
+    """At rms_threshold 0 an exact fit (distance 0) still ends the
+    reference's scan, so the cross-shard combine must stop at the first
+    shard with such a hit, as one device does: on this seeded image a later
+    shard holds exact fits whose keys round higher than the first one's."""
+    from fractencode_tpu.image.synth import natural_image
+
+    img = natural_image(603, 512, 512)
+    cfg = EncoderConfig()
+    single = encode_plane(img, cfg)
+    assert int((np.asarray(single.distance) == 0).sum()) > 0, "vacuous"
+    mesh = make_mesh(n_data=1, n_search=4, devices=jax.devices()[:4])
+    res = encode_batch_sharded(img[None], cfg, mesh, strategy=strategy)[0]
+    for f in ("domain_idx", "transform", "s", "o", "distance", "valid"):
+        np.testing.assert_array_equal(np.asarray(getattr(res, f)),
+                                      np.asarray(getattr(single, f)),
+                                      err_msg=f"strategy={strategy} {f}")

@@ -190,7 +190,7 @@ def test_sharded_quadtree_pallas_backend(rng):
     from fractencode_tpu.params import EncoderConfig
 
     imgs = rng.integers(0, 256, size=(2, 64, 64), dtype=np.uint8)
-    cfg = EncoderConfig(backend="pallas")
+    cfg = EncoderConfig(backend="pallas_interpret")
     qcfg = QuadtreeConfig(min_size=4, max_size=16)
     mesh = make_mesh(n_data=2, n_search=1)
     batch = encode_batch_quadtree_sharded(imgs, cfg, qcfg, mesh)
@@ -268,7 +268,7 @@ def test_coverage_mask_leaves_bit_identical(lenna_y):
     img = np.asarray(lenna_y)[128:256, 128:256]
     qcfg_on = QuadtreeConfig(min_size=4, max_size=16, error_threshold=50.0)
     qcfg_off = dataclasses.replace(qcfg_on, mask_covered=False)
-    for backend in ("jnp", "pallas"):
+    for backend in ("jnp", "pallas_interpret"):
         cfg = EncoderConfig(backend=backend)
         r_on = encode_plane_quadtree(img, cfg, qcfg_on)
         r_off = encode_plane_quadtree(img, cfg, qcfg_off)
@@ -292,7 +292,7 @@ def test_coverage_mask_oracle_vs_pallas(lenna_y):
     img = np.asarray(lenna_y)[128:192, 128:192]
     qcfg = QuadtreeConfig(min_size=4, max_size=16, error_threshold=50.0)
     r_j = encode_plane_quadtree(img, EncoderConfig(backend="jnp"), qcfg)
-    r_p = encode_plane_quadtree(img, EncoderConfig(backend="pallas"), qcfg)
+    r_p = encode_plane_quadtree(img, EncoderConfig(backend="pallas_interpret"), qcfg)
     for lj, lp in zip(r_j.levels, r_p.levels):
         for f in ("domain_idx", "transform", "s", "o", "accepted"):
             np.testing.assert_array_equal(
@@ -314,8 +314,8 @@ def test_fused_pyramid_matches_per_level(lenna_y):
     img = jnp.asarray(np.asarray(lenna_y)[128:256, 128:256])
     cfg = EncoderConfig()
     qcfg = QuadtreeConfig(min_size=4, max_size=16, error_threshold=50.0)
-    fused = _encode_quadtree_fused(img, cfg, qcfg, "jnp", True)
-    eager = _encode_quadtree_impl(img, cfg, qcfg, "jnp", True)
+    fused = _encode_quadtree_fused(img, cfg, qcfg)
+    eager = _encode_quadtree_impl(img, cfg, qcfg)
     assert len(fused) == len(eager)
     for lf, le in zip(fused, eager):
         for f in ("domain_idx", "transform", "s", "o", "accepted"):

@@ -115,7 +115,8 @@ _FLAG_CONFIGS = {
 }
 
 
-@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+@pytest.mark.parametrize("backend", ["jnp", "pallas_interpret"],
+                         ids=["jnp", "pallas"])
 @pytest.mark.parametrize("name", sorted(_FLAG_CONFIGS))
 def test_encoder_parity_flag_matrix(name, backend):
     """Winner parity for the reference's non-default flags: --rms > 0
@@ -124,8 +125,9 @@ def test_encoder_parity_flag_matrix(name, backend):
     transformmatcher.h:27-31), --noclassifier (DummyClassifier,
     Classifier2.hpp:41-49).  Goldens regenerated from the patched reference
     binary (scripts/build_reference.sh + the dump patch in BASELINE.md).
-    Both backends must hit the goldens — 'pallas' (interpret mode on CPU)
-    pins the in-kernel early-accept frontier and clamp epilogues."""
+    Both routes must hit the goldens — the kernel (in the Pallas
+    interpreter here) pins the in-kernel early-accept frontier and clamp
+    epilogues."""
     overrides, dump_name, _ = _FLAG_CONFIGS[name]
     dump = _load_dump(dump_name)
     y = load_gray(os.path.join(GOLDEN, "lenna128_input.png"))

@@ -124,7 +124,7 @@ def test_encode_batch_pallas_matches_single(rng):
     vmapped prep/post around the lax.map'd kernel must match per-plane."""
     from fractencode_tpu.encode import encode_batch
 
-    cfg = EncoderConfig(backend="pallas")
+    cfg = EncoderConfig(backend="pallas_interpret")
     imgs = rng.integers(0, 256, size=(3, 64, 64), dtype=np.uint8)
     batch = encode_batch(imgs, cfg)
     for i in range(3):
@@ -310,7 +310,7 @@ def test_pyramid_decode_content_matrix():
     integer boundaries, so u8-truncation fixed points are non-unique and
     which one an init basin reaches is decided by 1-ulp rounding — both
     renderings are exact fixed points of the map (measured: the same ramp
-    decodes to either on CPU vs TPU).  What this test must still catch is
+    decodes to either on different devices).  What this test must still catch is
     genuine non-convergence (e.g. the pre-continuation fixed-step bug,
     which left the ramp 33 dB short with multi-gray errors)."""
     for name, img in _content_matrix().items():

@@ -86,7 +86,7 @@ def test_vq_classes_backends_agree(rng):
 
     img = rng.integers(0, 256, size=(64, 64), dtype=np.uint8)
     r_j = encode_plane(img, EncoderConfig(vq_classes=3, backend="jnp"))
-    r_p = encode_plane(img, EncoderConfig(vq_classes=3, backend="pallas"))
+    r_p = encode_plane(img, EncoderConfig(vq_classes=3, backend="pallas_interpret"))
     for f in ("domain_idx", "transform", "valid"):
         np.testing.assert_array_equal(
             np.asarray(getattr(r_j, f)), np.asarray(getattr(r_p, f)), err_msg=f)
